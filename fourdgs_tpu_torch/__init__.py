@@ -6,11 +6,16 @@ which stays the reference it is tested against. This package imports
 neither JAX nor `fourdgs_tpu`.
 
   ops/       4D gaussian math, spherindrical SH, preprocess, tile binning,
-             the forward tile blend (CUDA kernel in csrc/ + plain PyTorch).
-  models/    the gaussian parameter set as an nn.Module.
+             the forward and backward tile blends (CUDA kernels in csrc/ +
+             plain PyTorch), k nearest neighbours.
+  models/    the gaussian parameter set as an nn.Module, the training
+             state, learning rates, Adam, densification statistics.
   data/      camera math.
-  engine/    reading checkpoints written by the JAX package.
-  render.py  render() and the serving module GaussianRenderer.
+  engine/    reading checkpoints written by the JAX package; the train
+             step.
+  utils/     image losses.
+  render.py  render() (differentiable) and the serving module
+             GaussianRenderer.
   cuda_build.py  nvcc build + ctypes loading of csrc/ kernels.
 
 Entry points run on "cuda" unless the caller passes device="cpu".

@@ -38,22 +38,25 @@
 // outside a warp's pixels, several pixels per thread, TMA staging) is
 // later work.
 //
-// Numerics. Built without --use_fast_math and, for this kernel alone,
-// with -fmad=false (cuda_build.KERNEL_FLAGS), so expf and every product
-// and sum round as the plain PyTorch version's separate elementwise
-// operations do, and the alpha and transmittance tests take the same
-// branches.
+// Numerics. Built without --use_fast_math and with -fmad=false
+// (cuda_build.KERNEL_FLAGS), so expf and every product and sum round as
+// the plain PyTorch version's separate elementwise operations do, and the
+// alpha and transmittance tests take the same branches. The falloff terms
+// come from alpha_terms.cuh, which the backward kernel K2 shares, so K2
+// replays exactly the pairs this kernel composited.
 
 #include <cuda_runtime.h>
 
+#include "alpha_terms.cuh"
+
 namespace {
+
+using blend::kAlphaMin;
+using blend::kTEps;
 
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;   // pixels per tile = threads per block
 constexpr int kRecVec = 3;            // float4 per 12-float record
-constexpr float kAlphaClamp = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
 
 __global__ void __launch_bounds__(kPix)
 blend_forward_kernel(const float4* __restrict__ rec,
@@ -91,16 +94,12 @@ blend_forward_kernel(const float4* __restrict__ rec,
         __syncthreads();
         if (!done) {
             for (int j = 0; j < n; ++j) {
-                // r0 = (x, y, conic a, conic b), r1 = (conic c, opacity,
-                // red, green), r2 = (blue, depth, flow x, flow y)
                 const float4 r0 = s_rec[j * kRecVec];
                 const float4 r1 = s_rec[j * kRecVec + 1];
-                const float dx = r0.x - px;
-                const float dy = r0.y - py;
-                const float power =
-                    -0.5f * (r0.z * dx * dx + r1.x * dy * dy) - r0.w * dx * dy;
-                if (power > 0.0f) continue;
-                const float alpha = fminf(r1.y * expf(power), kAlphaClamp);
+                const blend::Falloff f = blend::falloff(r0, r1, px, py);
+                if (f.power > 0.0f) continue;
+                const float alpha = fminf(
+                    blend::alpha_raw(r1, expf(f.power)), blend::kAlphaClamp);
                 if (alpha < kAlphaMin) continue;
                 const float test_t = t * (1.0f - alpha);
                 if (test_t < kTEps) {

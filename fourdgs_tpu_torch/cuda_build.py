@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C entry point and is compiled by
 `nvcc` into its own shared library, `build/kernels/<name>-<hash>.so` at
-the root of the checkout, keyed by a hash of the source and the flags, and
+the root of the checkout, keyed by a hash of the source, the shared
+headers `csrc/*.cuh` and the flags, and
 loaded with `ctypes`. Nothing is built at import time: the first CUDA call
 of a kernel's wrapper builds it, or a caller builds all of them up front
 with `build_all`.
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -29,12 +31,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# Flags of one kernel alone. blend_forward is built without multiply-add
-# contraction: its alpha and transmittance tests are thresholds, and a
-# fused multiply-add that rounds once where the plain version rounds twice
-# moves an instance across one now and then, which changes that pixel by
-# far more than the tolerance. PERF.md gives what this costs the kernel.
-KERNEL_FLAGS = {"blend_forward": ("-fmad=false",)}
+# Flags of one kernel alone. The blend kernels are built without
+# multiply-add contraction, so that every product and sum rounds as the
+# plain versions' separate operations do: K1 then matches its plain version
+# bit for bit. Their threshold tests do not depend on it (alpha_terms.cuh
+# rounds those explicitly). PERF.md gives what contraction would save
+# (measured once, a few percent of each kernel).
+KERNEL_FLAGS = {"blend_forward": ("-fmad=false",),
+                "blend_backward": ("-fmad=false",)}
 
 
 class BuildResult(NamedTuple):
@@ -56,12 +60,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(name: str, flags: tuple[str, ...] | None = None) -> BuildResult:
-    """Compile `csrc/<name>.cu` with `flags` (default: NVCC_FLAGS and its
-    KERNEL_FLAGS) unless that library is already built."""
-    if flags is None:
-        flags = NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+def build(name: str) -> BuildResult:
+    """Compile `csrc/<name>.cu` with NVCC_FLAGS and its KERNEL_FLAGS unless
+    that library is already built."""
+    flags = NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+    # The key covers the shared headers of csrc/ too.
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / f"{name}.cu",
+                                            *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     path = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if path.exists():
@@ -79,10 +84,13 @@ def build(name: str, flags: tuple[str, ...] | None = None) -> BuildResult:
 
 
 def build_all() -> list[BuildResult]:
-    """Build every kernel of `csrc/`."""
-    return [build(p.stem) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    """Build every kernel of `csrc/`: one nvcc each, all started
+    together."""
+    names = [p.stem for p in sorted(CSRC_DIR.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
-def load(name: str, flags: tuple[str, ...] | None = None) -> ctypes.CDLL:
-    """The kernel library `name` built with `flags`, built on first use."""
-    return ctypes.CDLL(str(build(name, flags).path))
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built on first use."""
+    return ctypes.CDLL(str(build(name).path))

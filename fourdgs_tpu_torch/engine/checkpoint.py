@@ -12,10 +12,8 @@ from __future__ import annotations
 import pickle
 from typing import Any, NamedTuple
 
-import numpy as np
-import torch
-
-from ..models.gaussians import AdamState, GaussianParams, GaussianState
+from ..models.gaussians import (AdamState, GaussianParams, GaussianState,
+                                as_tensors)
 
 JAX_PACKAGE = "fourdgs_tpu"
 
@@ -50,18 +48,12 @@ class _Unpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def _to_torch(tree, device):
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_to_torch(x, device) for x in tree))
-    return torch.as_tensor(np.asarray(tree), device=device)
-
-
 def load_checkpoint(path: str, device="cuda"):
     """Returns (GaussianState, EnvMapState | None, step, extra), the
-    arrays as tensors on `device`."""
+    arrays as tensors on `device` (floats f32, integers int64)."""
     with open(path, "rb") as f:
         payload = _Unpickler(f).load()
-    gauss = _to_torch(payload["gauss"], device)
+    gauss = as_tensors(payload["gauss"], device)
     env = (None if payload["env"] is None
-           else _to_torch(payload["env"], device))
+           else as_tensors(payload["env"], device))
     return gauss, env, payload["step"], payload.get("extra", {})

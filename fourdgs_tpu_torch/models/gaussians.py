@@ -1,19 +1,26 @@
 """The 4D gaussian parameter set.
 
-PyTorch counterpart of `fourdgs_tpu/models/gaussians.py` for serving: the
-9 learned tensors (`GaussianParams`, field names and shapes of the JAX
-NamedTuple and of the reference param groups, `gaussian_model.py:336-351`)
-held by an `nn.Module`, and their activation (`gaussian_model.py:49-60`).
-The optimizer and densification come with the training port.
+PyTorch counterpart of `fourdgs_tpu/models/gaussians.py`: the 9 learned
+tensors (`GaussianParams`, field names and shapes of the JAX NamedTuple and
+of the reference param groups, `gaussian_model.py:336-351`) held by an
+`nn.Module` for serving, their activation (`gaussian_model.py:49-60`), and
+for training the state as tensors (`GaussianState`) with the per-group
+learning rates and the hand-rolled torch-order Adam
+(`gaussian_model.py:331-369`). Densify and prune are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
+
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-15  # reference gaussian_model.py:353
 
 
 class GaussianParams(NamedTuple):
@@ -30,14 +37,15 @@ class GaussianParams(NamedTuple):
 
 
 class AdamState(NamedTuple):
-    """Adam moments as a JAX checkpoint stores them (unused by serving)."""
+    """Adam moments and step count (the JAX checkpoint's layout)."""
     mu: GaussianParams
     nu: GaussianParams
     count: Any
 
 
 class GaussianState(NamedTuple):
-    """The training state a JAX checkpoint stores."""
+    """The training state (the one a JAX checkpoint stores). The
+    densification accumulators are (P,) f32."""
     params: GaussianParams
     adam: AdamState
     n_active: Any
@@ -109,3 +117,116 @@ def from_jax_params(params, n_active, device="cuda") -> GaussianModel:
         f: torch.as_tensor(np.asarray(fields[f], np.float32), device=device)
         for f in GaussianParams._fields})
     return GaussianModel(tensors, int(np.asarray(n_active)))
+
+
+def as_tensors(tree, device):
+    """A NamedTuple tree of arrays (numpy, or anything `np.asarray`
+    takes) → the same tree of tensors on `device`: floating arrays as f32,
+    integer ones as int64."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(as_tensors(x, device) for x in tree))
+    a = np.asarray(tree)
+    dtype = np.float32 if a.dtype.kind == "f" else np.int64
+    return torch.as_tensor(a.astype(dtype), device=device)
+
+
+def from_jax_state(state, device="cuda") -> GaussianState:
+    """The port's training state from the JAX package's `GaussianState`
+    (params, Adam mu/nu/count, n_active and the densification
+    accumulators), given as that NamedTuple of numpy arrays, or as this
+    module's `GaussianState` of them (what `load_checkpoint` reads)."""
+    def params(x):
+        return GaussianParams(**x._asdict())
+
+    adam = state.adam
+    return as_tensors(GaussianState(
+        params=params(state.params),
+        adam=AdamState(params(adam.mu), params(adam.nu), adam.count),
+        **{f: getattr(state, f) for f in GaussianState._fields[2:]}),
+        device)
+
+
+def new_state(params: GaussianParams, n_active: int) -> GaussianState:
+    """A fresh training state for `params` (tensors): Adam moments zero,
+    step count 0, densification accumulators zero."""
+    zeros = GaussianParams(*(torch.zeros_like(x) for x in params))
+    p = params.xyz.shape[0]
+    device = params.xyz.device
+    acc = lambda: torch.zeros(p, dtype=torch.float32, device=device)  # noqa: E731
+    return GaussianState(
+        params=params,
+        adam=AdamState(mu=zeros, nu=zeros,
+                       count=torch.zeros((), dtype=torch.int64,
+                                         device=device)),
+        n_active=torch.as_tensor(int(n_active), device=device),
+        xyz_grad_accum=acc(), t_grad_accum=acc(), denom=acc(),
+        max_radii2d=acc())
+
+
+def expon_lr(step: int, lr_init: float, lr_final: float,
+             lr_delay_steps: int = 0, lr_delay_mult: float = 1.0,
+             max_steps: int = 1000000) -> float:
+    """JaxNeRF-style log-linear decay (`general_utils.py:30-63`), on the
+    host: the step is a Python int here."""
+    t = min(max(step / max_steps, 0.0), 1.0)
+    log_lerp = math.exp(math.log(lr_init) * (1 - t) + math.log(lr_final) * t)
+    if lr_delay_steps > 0:
+        delay = lr_delay_mult + (1 - lr_delay_mult) * math.sin(
+            0.5 * math.pi * min(max(step / lr_delay_steps, 0.0), 1.0))
+    else:
+        delay = 1.0
+    return delay * log_lerp
+
+
+def group_lrs(opt_cfg, spatial_lr_scale: float, step: int) -> GaussianParams:
+    """Per-group learning rates at `step` (reference training_setup +
+    update_learning_rate, `gaussian_model.py:331-369`)."""
+    xyz_lr = expon_lr(
+        step,
+        opt_cfg.position_lr_init * spatial_lr_scale,
+        opt_cfg.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=opt_cfg.position_lr_delay_mult,
+        max_steps=opt_cfg.position_lr_max_steps)
+    t_lr_init = (opt_cfg.position_t_lr_init
+                 if opt_cfg.position_t_lr_init >= 0
+                 else opt_cfg.position_lr_init)
+    return GaussianParams(
+        xyz=xyz_lr,
+        t=t_lr_init * spatial_lr_scale,
+        scaling=opt_cfg.scaling_lr,
+        scaling_t=opt_cfg.scaling_lr,
+        rotation=opt_cfg.rotation_lr,
+        rotation_r=opt_cfg.rotation_lr,
+        f_dc=opt_cfg.feature_lr,
+        f_rest=opt_cfg.feature_lr / 20.0,
+        opacity=opt_cfg.opacity_lr,
+    )
+
+
+def adam_update(params: GaussianParams, grads: GaussianParams,
+                state: AdamState, lrs: GaussianParams,
+                update_mask: torch.Tensor | None = None):
+    """torch-Adam step (eps added outside the sqrt, eps = 1e-15), in
+    torch's evaluation order: denom = sqrt(v)/sqrt(b2c) + eps;
+    p -= (lr/b1c) * m / denom. The bias corrections are f32, as in the
+    JAX package. `update_mask` (P,) freezes the rows where it is False
+    (their moments still decay). Returns new (params, AdamState); nothing
+    is updated in place."""
+    count = state.count + 1
+    cnt = count.to(torch.float32)
+    b1c = 1.0 - torch.pow(torch.tensor(ADAM_B1, device=cnt.device), cnt)
+    b2c = 1.0 - torch.pow(torch.tensor(ADAM_B2, device=cnt.device), cnt)
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v, lr in zip(params, grads, state.mu, state.nu, lrs):
+        m = ADAM_B1 * m + (1 - ADAM_B1) * g
+        v = ADAM_B2 * v + (1 - ADAM_B2) * g * g
+        step = (lr / b1c) * (m / (torch.sqrt(v) / torch.sqrt(b2c)
+                                  + ADAM_EPS))
+        if update_mask is not None:
+            mask = update_mask.reshape((-1,) + (1,) * (p.dim() - 1))
+            step = torch.where(mask, step, 0.0)
+        new_p.append(p - step)
+        new_m.append(m)
+        new_v.append(v)
+    return (GaussianParams(*new_p),
+            AdamState(GaussianParams(*new_m), GaussianParams(*new_v), count))

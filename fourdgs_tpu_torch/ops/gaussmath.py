@@ -71,6 +71,16 @@ def cov4d_blocks_columnar(scales_xyzt: torch.Tensor, q_l: torch.Tensor,
     return cov11, cov12, entry(3, 3)
 
 
+def build_cov4d(scales_xyzt: torch.Tensor, q_l: torch.Tensor,
+                q_r: torch.Tensor) -> torch.Tensor:
+    """Full 4D covariance Σ = R S² Rᵀ as (P, 4, 4), R the SO(4) matrix of
+    the rotor (`gaussian_model.py:34-40`, `general_utils.py:135-145`)."""
+    rr = rotor4d_rows(q_l, q_r)
+    rot = torch.stack([torch.stack(row, dim=-1) for row in rr], dim=-2)
+    m = rot * scales_xyzt[..., None, :]
+    return m @ m.transpose(-1, -2)
+
+
 def condition_cov4d_columnar(scales_xyzt, q_l, q_r, t, timestamp,
                              prefilter_var: float = -1.0):
     """Temporal slice of the 4D gaussian at `timestamp`. Returns

@@ -88,6 +88,7 @@ def preprocess(
     camera: CameraArrays,
     opts: RenderOptions,
     sh_mask: torch.Tensor | None = None,
+    mean2d_tap: torch.Tensor | None = None,
 ) -> ProcessedGaussians:
     """Run the full preprocess for one camera.
 
@@ -98,6 +99,10 @@ def preprocess(
       sh (P, M, 3): SH coefficients (dc + rest, reference channel order).
       active (P,): bool mask of live gaussians.
       sh_mask: optional (M,) degree-annealing mask.
+      mean2d_tap: optional (P, 2) zeros, added to the NDC mean so that its
+        gradient is the reference's viewspace_points gradient
+        (`gaussian_renderer/__init__.py:27-31`, NDC units), the
+        densification statistic.
     """
     p = means3d.shape[0]
     mod = opts.scale_modifier
@@ -131,6 +136,8 @@ def preprocess(
     wh = torch.tensor([opts.width, opts.height], dtype=means3d.dtype,
                       device=means3d.device)
     xy, _ = gm.project_points_columnar(shifted, camera.projmatrix, wh)
+    if mean2d_tap is not None:
+        xy = xy + mean2d_tap * (wh * 0.5)
     cov2d = gm.ewa_project_columnar(shifted, cov3, camera.viewmatrix,
                                     camera.focal, camera.tanfov)
     conic, radius_f, conic_ok = gm.cov2d_to_conic_radius(cov2d)

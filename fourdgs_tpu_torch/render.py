@@ -40,11 +40,14 @@ def blend_inputs(*, camera: CameraArrays, opts: RenderOptions,
                  mark: Callable[[str], None] | None = None, **gaussians):
     """Preprocess and tile binning of the post-activation `gaussians`
     (the keyword arguments of `preprocess`): (proc, bins, the (P, 12)
-    record table that the blend kernel gathers from)."""
+    record table that the blend kernels gather from). Binning sees a
+    detached `proc` (the JAX package's stop_gradient): gradients reach the
+    gaussians through the records only."""
     proc = pre.preprocess(**gaussians, camera=camera, opts=opts)
     if mark:
         mark("preprocess")
-    bins = binning.bin_gaussians(proc, opts)
+    bins = binning.bin_gaussians(
+        pre.ProcessedGaussians(*(x.detach() for x in proc)), opts)
     if mark:
         mark("binning")
     return proc, bins, blend_lib.build_records(proc)
@@ -52,12 +55,15 @@ def blend_inputs(*, camera: CameraArrays, opts: RenderOptions,
 
 def render(*, means3d, t, scales, scales_t, rotations, rotations_r,
            opacity, sh, active, camera: CameraArrays, bg,
-           opts: RenderOptions, infer: bool = False,
+           opts: RenderOptions, sh_mask=None, mean2d_tap=None,
+           infer: bool = False,
            mark: Callable[[str], None] | None = None) -> RenderOutputs:
-    """Render one camera. All inputs post-activation (see `preprocess`),
-    on one device: CUDA tensors run the CUDA blend kernel, CPU tensors its
-    plain version. `mark`, if given, is called with the name of each stage
-    (preprocess, binning, blend) as soon as its work is issued."""
+    """Render one camera, differentiably. All inputs post-activation (see
+    `preprocess`, which also takes `sh_mask` and `mean2d_tap`), on one
+    device: CUDA tensors run the CUDA blend kernels (K1 forward, K2 in the
+    backward), CPU tensors their plain versions. `mark`, if given, is
+    called with the name of each stage (preprocess, binning, blend) as
+    soon as its work is issued."""
     if infer:
         raise NotImplementedError(
             "infer=True needs the packed inference blend (kernel K3, "
@@ -65,13 +71,11 @@ def render(*, means3d, t, scales, scales_t, rotations, rotations_r,
     proc, bins, rec = blend_inputs(
         means3d=means3d, t=t, scales=scales, scales_t=scales_t,
         rotations=rotations, rotations_r=rotations_r, opacity=opacity,
-        sh=sh, active=active, camera=camera, opts=opts, mark=mark)
-    accum, t_final, _ = blend_lib.blend_forward(
-        rec, bins.gauss_id, bins.tile_start, bins.tile_count, opts.tiles_x)
+        sh=sh, active=active, camera=camera, opts=opts, sh_mask=sh_mask,
+        mean2d_tap=mean2d_tap, mark=mark)
+    color, depth, flow, alpha = blend_lib.Blend.apply(rec, bg, bins, opts)
     if mark:
         mark("blend")
-    color, depth, flow, alpha = blend_lib.assemble_outputs(
-        accum, t_final, bg, opts)
     return RenderOutputs(
         color=color, depth=depth, alpha=alpha, flow=flow,
         radii=proc.radius, visible=proc.visible,

@@ -32,6 +32,16 @@ def port_camera(cam):
         fl_y=cam.fl_y).arrays(CPU)
 
 
+def assert_scaled_close(a, b, name, atol=2e-4):
+    """The scale-normalised gradient check of
+    tests/test_pallas_blend.py:67-71: |a - b| / max(|b|.max(), 1e-3) <=
+    atol."""
+    a, b = np.asarray(a), np.asarray(b)
+    scale = max(np.abs(b).max(), 1e-3)
+    np.testing.assert_allclose(a / scale, b / scale, atol=atol,
+                               err_msg=f"grad mismatch for {name}")
+
+
 def saturated_scene(rng, p=420):
     """Many overlapping gaussians over the image centre with a near-opaque
     front third (tests/test_pallas_blend.py:test_multichunk_saturation):
