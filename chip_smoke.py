@@ -8,8 +8,9 @@ Run from the root of a checkout, with no arguments:
 It builds every CUDA kernel of fourdgs_tpu_torch/csrc/ with nvcc (into
 build/kernels/, one nvcc per source, all started together), holds each
 kernel against its plain PyTorch version on the card, then serves renders
-of the full-width model and takes training steps on it through the port's
-entry points, and times them:
+of the full-width model, takes training steps on it and evaluates a
+checkpoint of it from files on disk through the port's entry points, and
+times them:
 
   1. device   the card's name and power limit (nvidia-smi); no CUDA → exit 1
   2. build    nvcc of every kernel; seconds and ptxas report
@@ -40,9 +41,28 @@ entry points, and times them:
               version on the first step's own inputs (atol 2e-4 as
               above); median step ms, its split from CUDA events, and the
               device's busy share from a torch.profiler trace of 2 steps
-  7. kernels  one JSON line per the port's kernel table: launches on the
-              training path, error, time, plain time and the card's bound
-              for the pairs these inputs need
+  7. eval     the evaluation path from files on disk, as a user runs it:
+              the 100k cloud saved as a checkpoint, a YAML with
+              configs/dnerf/lego.yaml's keys (resolution 1), a
+              Blender-format scene of 4 test and 2 train views at 800x800
+              whose PNGs are exact (K1) renders of the cloud; then
+              `fourdgs_tpu_torch.render_cli` with --fast (the packed
+              inference blend K3: 1 K3 and 0 K1 launches per view) and
+              without (1 K1, 0 K3): PNGs, metrics.json, PSNR >= 35 / 45 dB
+              against the 8-bit ground truth, each fast view within 1.5e-2
+              of the exact one, K3 held to its plain version on the first
+              view's inputs; per-view and staged ms, K3 and K1 ms, the
+              device's busy share from a trace of the 4 views
+  8. eval_env one 1352x1014 view of the 300k cloud through Evaluator with a
+              500x500 environment map in the checkpoint and the packed
+              path: one K3 launch, the sky composite within 1e-6 of a plain
+              recomputation, K3 vs plain, K3 ms and bound
+  9. viewer   a ViewerServer on a free local port answers one SIBR-format
+              request through Evaluator.render_arrays and K3: the bytes
+              equal the render's 8-bit image
+ 10. kernels  one JSON line per the port's kernel table: launches on the
+              main paths, error, time, plain time and the card's bound for
+              the pairs these inputs need
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero before it. Imports torch, numpy and the port only.
@@ -52,8 +72,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -63,14 +86,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-from fourdgs_tpu_torch import cuda_build  # noqa: E402
+from fourdgs_tpu_torch import cuda_build, render_cli  # noqa: E402
+from fourdgs_tpu_torch.config import load_config  # noqa: E402
 from fourdgs_tpu_torch.data.cameras import Camera  # noqa: E402
+from fourdgs_tpu_torch.data.scene import (  # noqa: E402
+    SceneInfo, load_image_composited)
 from fourdgs_tpu_torch.engine import step as train  # noqa: E402
-from fourdgs_tpu_torch.models import gaussians  # noqa: E402
+from fourdgs_tpu_torch.engine.checkpoint import save_checkpoint  # noqa: E402
+from fourdgs_tpu_torch.engine.evaluator import (  # noqa: E402
+    Evaluator, camera_intrinsics)
+from fourdgs_tpu_torch.models import envmap, gaussians  # noqa: E402
 from fourdgs_tpu_torch.models.gaussians import from_jax_params  # noqa: E402
 from fourdgs_tpu_torch.ops import blend  # noqa: E402
 from fourdgs_tpu_torch.ops import preprocess as pre  # noqa: E402
-from fourdgs_tpu_torch.render import GaussianRenderer, blend_inputs  # noqa: E402
+from fourdgs_tpu_torch.render import (  # noqa: E402
+    GaussianRenderer, blend_inputs, render)
+from fourdgs_tpu_torch.utils import losses  # noqa: E402
+from fourdgs_tpu_torch.viewer import ViewerServer  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32_OPS = 67e12        # f32 operations/s outside the tensor cores
@@ -86,6 +118,9 @@ OPS_POWER_OK = 9
 OPS_ALPHA_OK = 3
 # Used: w = alpha·T (1); 6 feature multiply-adds (12).
 OPS_USED = 13
+# csrc/blend_infer.cu composites 4 features: w (1) and 4 multiply-adds (8);
+# the other classes cost what they cost in K1.
+OPS_INFER_USED = 9
 # f32 operations of csrc/blend_backward.cu, by the classes of
 # blend_backward_plain's pair counts. Below the pixel's n_contrib: the
 # falloff as in K1 (OPS_EVALUATED), and where power <= 0, expf and the
@@ -101,6 +136,9 @@ OPS_BWD_USED = 42
 TOL_ACCUM, TOL_T, MIN_NCON_SHARE = 1e-5, 1e-6, 0.9999
 TOL_COLOR = 1e-4
 TOL_GRAD = 2e-4     # scale-normalised, tests/test_pallas_blend.py:67-71
+# K3 on bf16-rounded opacity, rgb and depth against the exact K1; depth
+# scaled by its largest value (tests/test_pallas_blend.py:270-289).
+TOL_INFER = 1.5e-2
 
 # The lego optimisation, configs/dnerf/lego.yaml (OptimizationParams; the
 # scene radius that scales the position learning rate comes from a
@@ -123,6 +161,17 @@ def emit(obj):
 def check(ok: bool, msg: str):
     if not ok:
         raise RuntimeError(f"chip smoke check failed: {msg}")
+
+
+def zero_launches():
+    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    blend.blend_infer.launches = 0
+
+
+def read_launches():
+    return dict(k1=blend.blend_forward.launches,
+                k2=blend.blend_backward.launches,
+                k3=blend.blend_infer.launches)
 
 
 def card_line() -> str:
@@ -233,6 +282,43 @@ def check_report(report, label):
           f"{label}: n_contrib equal on {report['n_contrib_equal']}")
 
 
+def compare_infer(packed, bins, opts):
+    """K3 and its plain version on the same packed table: (error report,
+    kernel result, the plain version's pair counts)."""
+    args = kernel_args(packed, bins, opts)
+    k = blend.blend_infer(*args)
+    pairs = {}
+    p = blend.blend_infer_plain(*args, pair_counts=pairs)
+    torch.cuda.synchronize()
+    for x in k:
+        check(bool(torch.isfinite(x).all()), "K3 output not finite")
+    return (dict(accum_err=float((k[0] - p[0]).abs().max()),
+                 t_final_err=float((k[1] - p[1]).abs().max())), k, pairs)
+
+
+def check_infer_report(report, label):
+    check(report["accum_err"] <= TOL_ACCUM,
+          f"{label}: K3 accum error {report['accum_err']}")
+    check(report["t_final_err"] <= TOL_T,
+          f"{label}: K3 T_final error {report['t_final_err']}")
+
+
+def infer_vs_exact(k3, k1):
+    """Largest differences of K3 (rounded records) from K1 (exact ones):
+    rgb sums, the depth sum over max(1, its largest value), T_final."""
+    depth_scale = max(1.0, float(k1[0][:, 3].abs().max()))
+    return dict(
+        rgb=float((k3[0][:, 0:3] - k1[0][:, 0:3]).abs().max()),
+        depth_scaled=float((k3[0][:, 3] - k1[0][:, 3]).abs().max())
+        / depth_scale,
+        t_final=float((k3[1] - k1[1]).abs().max()))
+
+
+def check_infer_vs_exact(diff, label):
+    check(max(diff.values()) <= TOL_INFER,
+          f"{label}: K3 differs from K1 by {diff}")
+
+
 def grad_error(k, p):
     """Largest scale-normalised difference of two (P, 12) gradient tables
     over the record columns: |k - p| / max(|p|.max(), 1e-3)."""
@@ -293,9 +379,12 @@ def kernel_cases(device):
     for name, (scene, h, w) in cases.items():
         opts = pre.RenderOptions(height=h, width=w)
         act = {k: torch.as_tensor(v, device=device) for k, v in scene.items()}
-        _, bins, rec = blend_inputs(**act, camera=camera(w, h, 0.5, device),
-                                    opts=opts)
+        proc, bins, rec = blend_inputs(
+            **act, camera=camera(w, h, 0.5, device), opts=opts)
         report, k, _, _ = compare(rec, bins, opts)
+        k3_report, k3, _ = compare_infer(blend.pack_records_infer(proc),
+                                         bins, opts)
+        k3_diff = infer_vs_exact(k3, k)
         dcot = random_cotangents(cot_rng, k[1],
                                  torch.full((3,), 0.3, device=device), opts)
         k2_err, _, pairs = compare_backward(
@@ -306,9 +395,15 @@ def kernel_cases(device):
                       empty_tiles=int((counts == 0).sum()),
                       launches=blend.blend_forward.launches,
                       k2_grad_err=k2_err, k2_pairs=pairs,
-                      k2_launches=blend.blend_backward.launches)
+                      k2_launches=blend.blend_backward.launches,
+                      k3_accum_err=k3_report["accum_err"],
+                      k3_t_final_err=k3_report["t_final_err"],
+                      k3_vs_k1=k3_diff,
+                      k3_launches=blend.blend_infer.launches)
         emit({"phase": "kernel_vs_plain", **report})
         check_report(report, name)
+        check_infer_report(k3_report, name)
+        check_infer_vs_exact(k3_diff, name)
         check(k2_err <= TOL_GRAD, f"{name}: K2 gradient error {k2_err}")
         check(pairs["used"] > 0, f"{name}: K2 used no pair")
         if name.startswith("saturated"):
@@ -318,27 +413,38 @@ def kernel_cases(device):
             check(report["empty_tiles"] > 0, "no empty tile")
     check(blend.blend_forward.launches >= len(cases), "K1 never launched")
     check(blend.blend_backward.launches >= len(cases), "K2 never launched")
+    check(blend.blend_infer.launches >= len(cases), "K3 never launched")
 
 
 # --------------------------------------------------------------------------
 # Serving at full width
 # --------------------------------------------------------------------------
 
-def pair_bound_ms(pairs, bins, num_gaussians):
-    """Least time for the blend on these inputs: the operations of the
-    pairs they need, by class (the plain version's counts), against the
-    f32 peak, or the bytes (record table, ids, ranges and outputs, each
-    once) against the memory peak, whichever is larger."""
+def pair_bound_ms(pairs, bins, num_gaussians, ops_used=OPS_USED,
+                  rec_bytes=blend.REC * 4, out_planes=8):
+    """Least time for a forward blend on these inputs: the operations of
+    the pairs they need, by class (the plain version's counts), against
+    the f32 peak, or the bytes (record table, ids, ranges and the output
+    planes, each once) against the memory peak, whichever is larger. The
+    defaults are K1's: 48-byte records, 13 operations per used pair, 8
+    output planes (6 features, T_final, n_contrib)."""
     ops = (pairs["evaluated"] * OPS_EVALUATED
            + pairs["power_ok"] * OPS_POWER_OK
-           + pairs["alpha_ok"] * OPS_ALPHA_OK + pairs["used"] * OPS_USED)
+           + pairs["alpha_ok"] * OPS_ALPHA_OK + pairs["used"] * ops_used)
     ops_s = ops / PEAK_F32_OPS
     tiles = bins.tile_start.numel()
-    nbytes = (num_gaussians * blend.REC * 4 + bins.num_rendered * 4
-              + tiles * 8 + tiles * blend.PIX * 8 * 4)
+    nbytes = (num_gaussians * rec_bytes + bins.num_rendered * 4
+              + tiles * 8 + tiles * blend.PIX * out_planes * 4)
     bytes_s = nbytes / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes"), ops
+
+
+def infer_bound_ms(pairs, bins, num_gaussians):
+    """`pair_bound_ms` for K3: 32-byte records, 9 operations per used
+    pair, 5 output planes (4 features, T_final)."""
+    return pair_bound_ms(pairs, bins, num_gaussians, OPS_INFER_USED,
+                         blend.REC_INFER * 4, blend.NUM_FEAT_INFER + 1)
 
 
 def backward_bound_ms(pairs, args):
@@ -453,14 +559,13 @@ def serve(label, p, h, w, time_duration, scale_mu, timestamps, timed,
     setup_s = time.perf_counter() - t0
 
     # The main path: counts zeroed just before, read just after.
-    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    zero_launches()
     responses = [renderer(cam) for cam in cams]
     torch.cuda.synchronize()
-    launches = blend.blend_forward.launches
-    check(launches == len(cams),
-          f"{label}: {launches} blend kernel launches for {len(cams)} "
-          "requests")
-    check(blend.blend_backward.launches == 0, f"{label}: K2 launched")
+    counts = read_launches()
+    launches = counts["k1"]
+    check(counts == dict(k1=len(cams), k2=0, k3=0),
+          f"{label}: launches {counts} for {len(cams)} requests")
 
     per_request = []
     act = model.activate()._asdict()
@@ -577,7 +682,7 @@ def train_phase(device, p=100_000, hw=800, steps=5):
                                for a in args), out.clone()))
 
     # The main path: counts zeroed just before, read just after.
-    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    zero_launches()
     wall, metrics, st = [], [], state
     try:
         for i in range(steps):
@@ -589,9 +694,8 @@ def train_phase(device, p=100_000, hw=800, steps=5):
             metrics.append(m)
     finally:
         blend.blend_backward.observer = None
-    launches = dict(k1=blend.blend_forward.launches,
-                    k2=blend.blend_backward.launches)
-    check(launches == dict(k1=2 * steps, k2=2 * steps),
+    launches = read_launches()
+    check(launches == dict(k1=2 * steps, k2=2 * steps, k3=0),
           f"train: {launches} launches for {steps} steps of 2 cameras")
 
     for i, m in enumerate(metrics):
@@ -651,6 +755,390 @@ def train_phase(device, p=100_000, hw=800, steps=5):
     return k2_rows, launches
 
 
+# --------------------------------------------------------------------------
+# Evaluation from a config and a scene on disk (kernel K3)
+# --------------------------------------------------------------------------
+
+def lookat_camera(uid, angle_deg, timestamp, hw, name=""):
+    """A camera on a circle of radius 5 around the bench cloud's centre
+    (0, 0, 5), looking at it; angle 0 is the identity pose at the origin.
+    COLMAP axes: x right, y down, z forward."""
+    centre = np.array([0.0, 0.0, 5.0])
+    a = np.deg2rad(angle_deg)
+    pos = centre + 5.0 * np.array([np.sin(a), 0.0, -np.cos(a)])
+    fwd = (centre - pos) / np.linalg.norm(centre - pos)
+    right = np.cross([0.0, 1.0, 0.0], fwd)
+    right /= np.linalg.norm(right)
+    rot = np.stack([right, np.cross(fwd, right), fwd], axis=1)  # cam→world
+    return Camera(uid=uid, rot=rot, trans=-rot.T @ pos, fovx=1.0, fovy=1.0,
+                  width=hw, height=hw, timestamp=timestamp, image_name=name)
+
+
+def blender_frame(cam, file_path):
+    """The camera as a frame of a Blender-format transforms file: the
+    camera→world matrix in OpenGL axes (y up, z backward)."""
+    c2w = np.linalg.inv(cam.viewmatrix.astype(np.float64))
+    c2w[:3, 1:3] *= -1
+    return {"file_path": file_path, "time": cam.timestamp,
+            "transform_matrix": c2w.tolist()}
+
+
+def write_eval_scene(root, p, hw, device):
+    """Checkpoint, YAML and Blender-format scene of the evaluation phase
+    under `root`. The PNGs are exact (K1) renders of the checkpoint's own
+    cloud, rounded to 8 bits. Returns the YAML's path."""
+    import yaml
+    from PIL import Image
+
+    shutil.rmtree(root, ignore_errors=True)
+    source, model_dir = os.path.join(root, "scene"), os.path.join(root, "model")
+    scene = bench_scene(p, seed=0)
+    params = gaussians.GaussianParams(**{
+        k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+        for k, v in raw_params(scene).items()})
+    save_checkpoint(os.path.join(model_dir, "chkpnt30000.pkl"),
+                    gaussians.new_state(params, p), None, 30000)
+
+    with open(os.path.join(ROOT, "configs", "dnerf", "lego.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["num_pts"] = p
+    cfg["ModelParams"].update(source_path=source, model_path=model_dir,
+                              resolution=1)
+    cfg_path = os.path.join(root, "lego_eval.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+    renderer = GaussianRenderer(gaussians.GaussianModel(params, p),
+                                pre.RenderOptions(height=hw, width=hw,
+                                                  gaussian_dim=4, rot_4d=True,
+                                                  time_duration=1.0))
+    splits = {"test": [(-20.0, 0.1), (-7.0, 0.4), (7.0, 0.7), (20.0, 0.95)],
+              "train": [(-30.0, 0.0), (30.0, 1.0)]}
+    for split, views in splits.items():
+        os.makedirs(os.path.join(source, split))
+        frames = []
+        for i, (angle, ts) in enumerate(views):
+            cam = lookat_camera(i, angle, ts, hw)
+            color = renderer(cam.arrays(device))[0]
+            rgb8 = (color * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+            Image.fromarray(rgb8).save(
+                os.path.join(source, split, f"r_{i:03d}.png"))
+            frames.append(blender_frame(cam, f"{split}/r_{i:03d}"))
+        with open(os.path.join(source, f"transforms_{split}.json"),
+                  "w") as f:
+            json.dump({"camera_angle_x": 1.0, "frames": frames}, f)
+    return cfg_path
+
+
+def read_png(path):
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def cli_args(cfg_path, out_dir, device):
+    return ["--config", cfg_path, "--load_iteration", "-1", "--out", out_dir,
+            "--device", str(device)]
+
+
+def run_cli(cfg_path, out_dir, fast, views, device):
+    """One run of the port's render_cli on the test split, the launch
+    counts zeroed just before and read just after: (metrics.json's
+    contents, the counts)."""
+    argv = cli_args(cfg_path, out_dir, device)
+    zero_launches()
+    rc = render_cli.main(argv + (["--fast"] if fast else []))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    label = "render_cli --fast" if fast else "render_cli"
+    check(rc == 0, f"{label}: exit code {rc}")
+    want = dict(k1=0, k2=0, k3=views) if fast else dict(k1=views, k2=0, k3=0)
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        summary = json.load(f)
+    check(len(summary["views"]) == views, f"{label}: views in metrics.json")
+    for i, view in enumerate(summary["views"]):
+        check(view["instances_dropped"] == 0, f"{label}: instances dropped")
+        for name in (f"{i:05d}.png", f"{i:05d}_depth.png"):
+            check(os.path.exists(os.path.join(out_dir, name)),
+                  f"{label}: {name} missing")
+    for key in ("ssim", "msssim"):
+        check(np.isfinite(summary[key]) and 0.0 < summary[key] <= 1.0,
+              f"{label}: {key} {summary[key]}")
+    return summary, launches
+
+
+def infer_inputs(evaluator, cam):
+    """(packed table, bins, (P, 12) table) of one view: what the packed
+    and the exact blend read on this view's inputs."""
+    act = gaussians.activate(evaluator.gauss.params, evaluator.n_active)
+    proc, bins, packed = blend_inputs(
+        **act._asdict(), camera=cam.arrays(evaluator.device),
+        opts=evaluator.opts, infer=True)
+    return packed, bins, blend.build_records(proc)
+
+
+def k3_row(packed, bins, rec, opts, num_gaussians, label):
+    """K3 held to its plain version and timed on one view's inputs, with
+    K1's time on the same view beside it."""
+    report, k3, pairs = compare_infer(packed, bins, opts)
+    check_infer_report(report, label)
+    k1 = blend.launch_forward(*kernel_args(rec, bins, opts))
+    diff = infer_vs_exact(k3, k1)
+    check_infer_vs_exact(diff, label)
+    args = kernel_args(packed, bins, opts)
+    bound_ms, bound_by, ops = infer_bound_ms(pairs, bins, num_gaussians)
+    return dict(
+        num_rendered=bins.num_rendered, max_per_tile=int(bins.max_per_tile),
+        pairs=pairs, operations=ops, bound_ms=bound_ms, bound_by=bound_by,
+        ms=time_call(lambda: blend.launch_infer(*args), 20),
+        k1_ms=time_kernel(rec, bins, opts),
+        plain_ms=time_call(lambda: blend.blend_infer_plain(*args), 1),
+        k3_vs_k1=diff, **report)
+
+
+def eval_phase(device, p=100_000, hw=800):
+    """The evaluation path at full width, from files on disk through
+    render_cli, with and without the packed inference blend."""
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", f"eval_{hw}x{hw}")
+    cfg_path = write_eval_scene(root, p, hw, device)
+    setup_s = time.perf_counter() - t0
+    views = 4
+
+    # One view through the tool first, so that neither counted run pays
+    # the process's first allocations and kernel loads.
+    check(render_cli.main(cli_args(cfg_path, os.path.join(root, "warm_up"),
+                                   device) + ["--fast", "--max_views", "1"])
+          == 0, "render_cli warm-up failed")
+    fast, launches = run_cli(cfg_path, os.path.join(root, "renders_fast"),
+                             True, views, device)
+    exact, exact_launches = run_cli(
+        cfg_path, os.path.join(root, "renders_exact"), False, views, device)
+    check(fast["psnr"] >= 35.0, f"eval --fast: psnr {fast['psnr']}")
+    check(exact["psnr"] >= 45.0, f"eval: psnr {exact['psnr']}")
+
+    # The same views through an Evaluator of our own: the fast view
+    # against the exact one, and the PNG against the render.
+    evaluator = Evaluator(load_config(cfg_path), device=device, verbose=False)
+    evaluator.load(os.path.join(root, "model", "chkpnt30000.pkl"))
+    cams = evaluator.scene.test_cameras
+    view_diffs = []
+    for i, cam in enumerate(cams):
+        evaluator.eval_infer = False
+        color_e, depth_e, alpha_e = evaluator.render_view(cam)
+        evaluator.eval_infer = True
+        color_f, depth_f, alpha_f = evaluator.render_view(cam)
+        diff = dict(
+            color=float((color_f - color_e).abs().max()),
+            alpha=float((alpha_f - alpha_e).abs().max()),
+            depth_scaled=float((depth_f - depth_e).abs().max())
+            / max(1.0, float(depth_e.abs().max())))
+        check(max(diff.values()) <= TOL_INFER,
+              f"eval view {i}: fast differs from exact by {diff}")
+        png = read_png(os.path.join(root, "renders_fast", f"{i:05d}.png"))
+        png_err = float(np.abs(png / 255.0
+                               - color_f.cpu().numpy()).max())
+        check(png.shape == (hw, hw, 3) and png_err <= 1.0 / 255.0 + 1e-6,
+              f"eval view {i}: PNG differs from the render by {png_err}")
+        view_diffs.append(dict(view=i, png_err=png_err, **diff))
+
+    # K3 against its plain version on the first view's own inputs.
+    packed, bins, rec = infer_inputs(evaluator, cams[0])
+    row = k3_row(packed, bins, rec, evaluator.opts, p, "eval view 0")
+    check(row["num_rendered"] == fast["views"][0]["num_rendered"],
+          "eval view 0: num_rendered differs from render_cli's")
+    emit({"phase": f"eval_{hw}x{hw}_k3_vs_plain", **row})
+
+    # One view in stages, as render_cli handles it, and a trace of the 4.
+    white = evaluator.cfg.model.white_background
+
+    def view(cam, mark=None):
+        gt = torch.as_tensor(
+            load_image_composited(cam.image_path, white)[0], device=device)
+        if mark:
+            mark("load_image")
+        color, _, _ = evaluator.render_view(cam, mark)
+        out = (float(losses.psnr(color, gt)), float(losses.ssim(color, gt)),
+               float(losses.msssim(color[None], gt[None])))
+        if mark:
+            mark("metrics")
+        return out
+
+    view(cams[0])                                        # warm-up
+    stages = [dict(total=total, **dict(parts)) for total, parts in
+              (staged(lambda mark: view(cams[i % views], mark))
+               for i in range(8))]
+    wall = []
+    for i in range(8):
+        t1 = time.perf_counter()
+        view(cams[i % views])
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+    trace = profile(lambda i: view(cams[i]), views, "view")
+    view_ms = float(np.median(wall))
+    emit(dict(
+        phase=f"eval_{hw}x{hw}", entry="files: yaml, transforms json, png, "
+        "pkl checkpoint -> fourdgs_tpu_torch.render_cli", gaussians=p,
+        height=hw, width=hw, views=views,
+        fast=dict(psnr=fast["psnr"], ssim=fast["ssim"],
+                  msssim=fast["msssim"],
+                  render_ms=[v["render_ms"] for v in fast["views"]],
+                  launches=launches),
+        exact=dict(psnr=exact["psnr"], ssim=exact["ssim"],
+                   msssim=exact["msssim"],
+                   render_ms=[v["render_ms"] for v in exact["views"]],
+                   launches=exact_launches),
+        fast_vs_exact=view_diffs,
+        view_ms_median=view_ms,
+        staged_ms_median={k: float(np.median([s[k] for s in stages]))
+                          for k in stages[0]},
+        device_busy_share=trace["device_ms_per_view"] / view_ms,
+        trace=trace, setup_s=setup_s))
+    return evaluator, row, launches["k3"]
+
+
+def eval_env_phase(device, p=300_000, h=1014, w=1352, res=500):
+    """One view of the DyNeRF-shape cloud through Evaluator with an
+    environment map in the checkpoint and the packed blend."""
+    root = os.path.join(ROOT, "build", f"eval_{w}x{h}_env")
+    shutil.rmtree(root, ignore_errors=True)
+    scene = bench_scene(p, seed=0, scale_mu=-4.9)
+    params = gaussians.GaussianParams(**{
+        k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+        for k, v in raw_params(scene).items()})
+    tex = np.random.default_rng(0).random((res, res, 3)).astype(np.float32)
+    env = envmap.init_envmap(res, device=device)._replace(
+        texture=torch.as_tensor(tex, device=device))
+    path = os.path.join(root, "chkpnt30000.pkl")
+    save_checkpoint(path, gaussians.new_state(params, p), env, 30000)
+
+    # configs/dynerf/flame_salmon.yaml's model settings.
+    cfg = load_config(None, overrides=dict(
+        gaussian_dim=4, rot_4d=True, time_duration=[0.0, 10.0], num_pts=p,
+        pipeline=dict(env_map_res=res, eval_shfs_4d=True)))
+    cam = Camera(uid=0, rot=np.eye(3), trans=np.zeros(3), fovx=1.0, fovy=1.0,
+                 width=w, height=h, timestamp=0.5)
+    evaluator = Evaluator(cfg, scene=SceneInfo(
+        point_cloud=None, train_cameras=[cam], test_cameras=[cam],
+        translate=np.zeros(3), radius=1.0, ply_path=""), device=device,
+        verbose=False)
+    evaluator.eval_infer = True
+    evaluator.load(path)
+    check(evaluator.env is not None
+          and tuple(evaluator.env.texture.shape) == (res, res, 3),
+          "eval_env: the checkpoint's environment map was not loaded")
+    evaluator.render_view(cam)                           # warm-up
+    torch.cuda.synchronize()
+
+    zero_launches()
+    t1 = time.perf_counter()
+    color, depth, alpha = evaluator.render_view(cam)
+    torch.cuda.synchronize()
+    view_ms = (time.perf_counter() - t1) * 1e3
+    launches = read_launches()
+    check(launches == dict(k1=0, k2=0, k3=1), f"eval_env: {launches}")
+    check(evaluator.last_counts["instances_dropped"] == 0,
+          "eval_env: instances dropped")
+    check(tuple(color.shape) == (h, w, 3), "eval_env: color shape")
+    for name, x in (("color", color), ("depth", depth), ("alpha", alpha)):
+        check(bool(torch.isfinite(x).all()), f"eval_env: {name} not finite")
+
+    # The sky composite against a plain recomputation.
+    arrays = cam.arrays(device)
+    act = gaussians.activate(evaluator.gauss.params, evaluator.n_active)
+    out = render(**act._asdict(), camera=arrays, bg=evaluator.bg,
+                 opts=evaluator.opts, infer=True)
+    intr = torch.as_tensor(camera_intrinsics(cam), device=device)
+    origin, dirs = envmap.camera_rays(arrays.viewmatrix, intr, h, w)
+    sky = envmap.sample_sky(evaluator.env.texture, origin, dirs)
+    want = torch.clamp(out.color + (1.0 - out.alpha)[..., None] * sky,
+                       0.0, 1.0)
+    sky_err = float((color - want).abs().max())
+    check(sky_err <= 1e-6, f"eval_env: sky composite error {sky_err}")
+    check(float(sky.max()) > 0.5 and float((1.0 - out.alpha).max()) > 0.5,
+          "eval_env: the sky is not visible in this view")
+
+    packed, bins, rec = infer_inputs(evaluator, cam)
+    row = k3_row(packed, bins, rec, evaluator.opts, p, "eval_env")
+    emit(dict(phase=f"eval_{w}x{h}_env", gaussians=p, height=h, width=w,
+              env_map_res=res, view_ms=view_ms, sky_err=sky_err,
+              launches=launches, k3=row))
+    return launches["k3"]
+
+
+def viewer_phase(evaluator):
+    """One SIBR-format request over a local socket, answered by
+    Evaluator.render_arrays through K3."""
+    from fourdgs_tpu_torch.data.cameras import camera_from_matrices
+
+    w, h = evaluator.opts.width, evaluator.opts.height
+    cam = evaluator.scene.test_cameras[1]
+    evaluator.eval_infer = True
+    # The wire format holds row-vector (transposed) matrices with SIBR's
+    # y/z flips, which viewer.decode_camera undoes.
+    view = cam.viewmatrix.T.copy()
+    view[:, 1:3] *= -1
+    proj = cam.full_proj.T.copy()
+    proj[:, 1] *= -1
+    message = {"resolution_x": w, "resolution_y": h, "train": False,
+               "fov_x": cam.fovx, "fov_y": cam.fovy, "z_near": 0.01,
+               "z_far": 100.0, "shs_python": False,
+               "rot_scale_python": False, "keep_alive": False,
+               "scaling_modifier": 1.0, "view_matrix": view.flatten().tolist(),
+               "view_projection_matrix": proj.flatten().tolist()}
+    timestamp = 0.4
+    server = ViewerServer(port=0)
+    port = server.listener.getsockname()[1]
+    result = {}
+
+    def client():
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as c:
+            payload = json.dumps(message).encode()
+            c.sendall(len(payload).to_bytes(4, "little") + payload)
+            buf = b""
+            while len(buf) < h * w * 3:
+                chunk = c.recv(h * w * 3 - len(buf))
+                if not chunk:
+                    break
+                buf += chunk
+            result["bytes"] = buf
+
+    thread = threading.Thread(target=client)
+    render_fn = render_cli.viewer_render_fn(evaluator, timestamp)
+    zero_launches()
+    t1 = time.perf_counter()
+    thread.start()
+    try:
+        deadline = time.monotonic() + 60.0
+        while "bytes" not in result and time.monotonic() < deadline:
+            server.poll(render_fn, verify="ok")
+            time.sleep(0.001)
+        thread.join(timeout=60)
+    finally:
+        server.close()
+    request_ms = (time.perf_counter() - t1) * 1e3
+    launches = read_launches()
+    check(not thread.is_alive() and "bytes" in result,
+          "viewer: the request was never served")
+    check(launches == dict(k1=0, k2=0, k3=1), f"viewer: {launches}")
+
+    arrays = camera_from_matrices(w, h, cam.fovx, cam.fovy, cam.viewmatrix,
+                                  cam.full_proj, timestamp=timestamp,
+                                  device=evaluator.device)
+    intr = torch.as_tensor(camera_intrinsics(cam), device=evaluator.device)
+    color, _, _ = evaluator.render_arrays(arrays, intr)
+    want = render_cli.to_u8(color)
+    check(len(result["bytes"]) == want.size, "viewer: short response")
+    got = np.frombuffer(result["bytes"], np.uint8).reshape(h, w, 3)
+    check(bool((got == want).all()),
+          "viewer: the bytes differ from the render's 8-bit image")
+    check(int(want.max()) > 0, "viewer: the served image is black")
+    emit(dict(phase="viewer", height=h, width=w, request_ms=request_ms,
+              launches=launches, bytes=len(result["bytes"])))
+    return launches["k3"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -690,8 +1178,15 @@ def main() -> int:
     # 6. the lego training step at full width
     k2_rows, train_launches = train_phase(device)
 
-    # 7. kernel summary: K1 at the 800x800 requests (means over the four),
-    # K2 at the first training step's two cameras (means over the two).
+    # 7. evaluation from files through render_cli (K3), 8. the DyNeRF
+    # shape with an environment map, 9. the viewer socket
+    evaluator, k3_row_800, eval_k3 = eval_phase(device)
+    env_k3 = eval_env_phase(device)
+    viewer_k3 = viewer_phase(evaluator)
+
+    # 10. kernel summary: K1 at the 800x800 requests (means over the four),
+    # K2 at the first training step's two cameras (means over the two), K3
+    # at the first 800x800 evaluation view.
     mean = lambda rs, key: float(np.mean([r[key] for r in rs]))  # noqa: E731
     emit({"kernels": [{
         "name": "blend_forward",
@@ -721,6 +1216,22 @@ def main() -> int:
         "plain_ms": mean(k2_rows, "plain_ms"),
         "bound_ms": mean(k2_rows, "bound_ms"),
         "bound_by": k2_rows[0]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "blend_infer",
+        "route": "cuda",
+        "source": "fourdgs_tpu_torch/csrc/blend_infer.cu",
+        "replaces": "fourdgs_tpu/ops/pallas_blend.py:1122",
+        "launches": eval_k3,
+        "launches_by_path": {"eval_800x800": eval_k3,
+                             "eval_1352x1014_env": env_k3,
+                             "viewer": viewer_k3},
+        "max_abs_err": max(k3_row_800["accum_err"],
+                           k3_row_800["t_final_err"]),
+        "ms": k3_row_800["ms"],
+        "plain_ms": k3_row_800["plain_ms"],
+        "bound_ms": k3_row_800["bound_ms"],
+        "bound_by": k3_row_800["bound_by"],
         "library_ms": None,
     }], "card": card})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

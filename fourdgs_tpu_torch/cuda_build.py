@@ -33,12 +33,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # Flags of one kernel alone. The blend kernels are built without
 # multiply-add contraction, so that every product and sum rounds as the
-# plain versions' separate operations do: K1 then matches its plain version
-# bit for bit. Their threshold tests do not depend on it (alpha_terms.cuh
+# plain versions' separate operations do: K1 and K3 then match their plain
+# versions bit for bit. Their threshold tests do not depend on it (alpha_terms.cuh
 # rounds those explicitly). PERF.md gives what contraction would save
 # (measured once, a few percent of each kernel).
 KERNEL_FLAGS = {"blend_forward": ("-fmad=false",),
-                "blend_backward": ("-fmad=false",)}
+                "blend_backward": ("-fmad=false",),
+                "blend_infer": ("-fmad=false",)}
 
 
 class BuildResult(NamedTuple):

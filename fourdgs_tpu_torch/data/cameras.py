@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -67,6 +68,14 @@ def projection_matrix_center_shift(znear, zfar, cx, cy, fl_x, fl_y, w,
     return p
 
 
+def fov2focal(fov: float, pixels: int) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal: float, pixels: int) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def _to_arrays(viewmatrix, projmatrix, campos, focal, tanfov, timestamp,
                device) -> CameraArrays:
     as_t = lambda a: torch.as_tensor(  # noqa: E731
@@ -89,10 +98,15 @@ class Camera:
     width: int
     height: int
     timestamp: float = 0.0
+    image_name: str = ""
+    image_path: str = ""
+    image: Optional[np.ndarray] = None        # (H, W, 3) float32 in [0, 1]
+    alpha_mask: Optional[np.ndarray] = None   # (H, W) float32
     cx: float = -1.0
     cy: float = -1.0
     fl_x: float = -1.0
     fl_y: float = -1.0
+    meta_only: bool = False    # lazy: the image is loaded at fetch time
 
     def __post_init__(self):
         self.viewmatrix = world_to_view(self.rot, self.trans)
@@ -129,3 +143,10 @@ def camera_from_matrices(width: int, height: int, fovx: float, fovy: float,
     focal = [width / (2 * tanx), height / (2 * tany)]
     return _to_arrays(viewmatrix, full_proj, campos, focal, [tanx, tany],
                       timestamp, device)
+
+
+def stack_cameras(cams: list, device="cuda") -> CameraArrays:
+    """Stack host cameras into batched CameraArrays (leading axis B)."""
+    parts = [c.arrays(device) for c in cams]
+    return CameraArrays(*(torch.stack([getattr(p, f) for p in parts])
+                          for f in CameraArrays._fields))

@@ -1,29 +1,30 @@
-"""Read checkpoints written by the JAX package.
+"""Checkpointing: the full training state as a pickled tree of numpy
+arrays, written by this package or by the JAX package.
 
-`fourdgs_tpu.engine.checkpoint.save_checkpoint` pickles a dict whose
-values are the JAX package's NamedTuples of numpy arrays. Unpickling them
-plainly would import that package, and JAX with it; `load_checkpoint` maps
-those classes to the port's own NamedTuples of the same fields instead, and
-refuses any other class of the JAX package.
+PyTorch counterpart of `fourdgs_tpu/engine/checkpoint.py` (reference
+`capture()/restore()`, `scene/gaussian_model.py:99-177`): params, Adam
+moments, densification accumulators, active count, env map, step.
+`save_checkpoint` pickles the port's own NamedTuples of host numpy arrays.
+`fourdgs_tpu.engine.checkpoint.save_checkpoint` pickles the JAX package's
+NamedTuples; unpickling them plainly would import that package, and JAX
+with it, so `load_checkpoint` maps those classes to the port's NamedTuples
+of the same fields and refuses any other class of the JAX package. It
+reads both formats.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
-from typing import Any, NamedTuple
 
+import numpy as np
+import torch
+
+from ..models.envmap import EnvMapState
 from ..models.gaussians import (AdamState, GaussianParams, GaussianState,
                                 as_tensors)
 
 JAX_PACKAGE = "fourdgs_tpu"
-
-
-class EnvMapState(NamedTuple):
-    """The environment-map state a JAX checkpoint stores."""
-    texture: Any    # (res, res, 3)
-    mu: Any
-    nu: Any
-    count: Any
 
 
 _CLASSES = {
@@ -46,6 +47,41 @@ class _Unpickler(pickle.Unpickler):
                 f"checkpoint holds {module}.{name}, which has no counterpart "
                 "in fourdgs_tpu_torch")
         return super().find_class(module, name)
+
+
+def _to_numpy(tree):
+    """A NamedTuple tree of tensors → the same tree of host numpy arrays."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_numpy(x) for x in tree))
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def save_checkpoint(path: str, gauss: GaussianState,
+                    env: EnvMapState | None, step: int, extra=None,
+                    io_pool=None):
+    """Atomic checkpoint save (tmp file + os.replace). The device → host
+    copy happens here; with `io_pool` (an Executor) pickling and disk IO
+    run in the background and the Future is returned."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {
+        "gauss": _to_numpy(gauss),
+        "env": None if env is None else _to_numpy(env),
+        "step": int(step),
+        "extra": extra or {},
+    }
+
+    def write():
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(payload, f, protocol=4)
+        os.replace(tmp, path)
+
+    if io_pool is not None:
+        return io_pool.submit(write)
+    write()
+    return None
 
 
 def load_checkpoint(path: str, device="cuda"):

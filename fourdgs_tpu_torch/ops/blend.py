@@ -1,17 +1,21 @@
-"""Tile blend: the CUDA kernels K1 (forward) and K2 (backward), their
-plain PyTorch versions, and the differentiable `Blend` that joins them.
+"""Tile blend: the CUDA kernels K1 (forward), K2 (backward) and K3 (packed
+inference forward), their plain PyTorch versions, and the differentiable
+`Blend` that joins K1 and K2.
 
 PyTorch counterpart of `fourdgs_tpu/ops/blend.py` and
 `fourdgs_tpu/ops/pallas_blend.py` (`blend_forward_pallas`,
-`blend_backward_pallas` and the VJP `_blend_pallas_fwd` /
-`_blend_pallas_bwd`). `blend_forward` and `blend_backward` launch the
-hand-written kernels `csrc/blend_forward.cu` and `csrc/blend_backward.cu`
-on CUDA tensors and run `blend_forward_plain` / `blend_backward_plain` on
+`blend_backward_pallas`, the VJP `_blend_pallas_fwd` / `_blend_pallas_bwd`
+and `blend_pallas_infer`). `blend_forward`, `blend_backward` and
+`blend_infer` launch the hand-written kernels `csrc/blend_forward.cu`,
+`csrc/blend_backward.cu` and `csrc/blend_infer.cu` on CUDA tensors and run
+`blend_forward_plain` / `blend_backward_plain` / `blend_infer_plain` on
 CPU tensors only. Per-gaussian data travels as one (P, 12) f32 record
 table: [0:2] xy, [2:5] conic (a, b, c), [5] opacity, [6:12] feat (rgb,
 depth, flow); the kernels gather records through the sorted gaussian ids,
 and K2 adds its gradients per gaussian into a (P, 12) table of the same
-layout. The JAX package's `blend` is here `Blend.apply`.
+layout. K3 reads a packed (P, 8) int32 table instead
+(`pack_records_infer`): xy and conic as f32 bits, opacity, rgb and depth
+rounded to bf16 pairs. The JAX package's `blend` is here `Blend.apply`.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from .preprocess import TILE, ProcessedGaussians, RenderOptions
 PIX = TILE * TILE  # 256 pixels per tile
 NUM_FEAT = 6       # rgb(3) + depth(1) + flow(2)
 REC = 12           # xy(2) + conic(3) + opacity(1) + feat(6)
+REC_INFER = 8      # packed 32-bit words per gaussian of the inference table
+NUM_FEAT_INFER = 4  # rgb(3) + depth(1): what the inference blend composites
 NUM_GRAD = 10      # record columns K2 differentiates: all but the flow
 COT = NUM_FEAT + 1  # per-pixel backward inputs: dc(6) + tf_term
 WARP = 32
@@ -49,12 +55,13 @@ def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
                         tiles_x: int, pair_counts: dict | None = None):
     """Plain PyTorch version of the kernel: the same function with the
-    same f32 operations in the same order.
+    same f32 operations in the same order. `rec` is (P, 6 + F): F = 6
+    features for K1's table, 4 for the unpacked inference table.
 
     Walks every tile's instances in chunks of PLAIN_CHUNK ranks: the falloff
     terms of a chunk are computed for all tiles at once, then the
     transmittance recursion steps through the chunk's ranks one at a time.
-    Returns (accum (T, 6, 256), t_final (T, 256), n_contrib (T, 256) i32).
+    Returns (accum (T, F, 256), t_final (T, 256), n_contrib (T, 256) i32).
 
     If `pair_counts` is a dict, it receives the number of (pixel, instance)
     pairs these inputs need, by how far each goes: "evaluated" (the pixel
@@ -65,8 +72,8 @@ def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
     num_tiles = tile_start.shape[0]
     px, py = _tile_pixel_coords(num_tiles, tiles_x, device)
     t = torch.ones((num_tiles, PIX), dtype=torch.float32, device=device)
-    acc = torch.zeros((num_tiles, NUM_FEAT, PIX), dtype=torch.float32,
-                      device=device)
+    acc = torch.zeros((num_tiles, rec.shape[1] - 6, PIX),
+                      dtype=torch.float32, device=device)
     done = torch.zeros((num_tiles, PIX), dtype=torch.bool, device=device)
     ncon = torch.zeros((num_tiles, PIX), dtype=torch.int32, device=device)
     max_count = int(tile_count.max())
@@ -78,7 +85,7 @@ def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
     for c0 in range(0, max_count, chunk):
         in_range = (c0 + ranks)[None, :] < count                # (T, K)
         idx = torch.where(in_range, start + c0 + ranks[None, :], 0)
-        r = rec[gauss_id[idx].to(torch.int64)]                 # (T, K, 12)
+        r = rec[gauss_id[idx].to(torch.int64)]                 # (T, K, 6+F)
         dx = r[:, :, 0:1] - px[:, None, :]                     # (T, K, PIX)
         dy = r[:, :, 1:2] - py[:, None, :]
         power = (-0.5 * (r[:, :, 2:3] * dx * dx + r[:, :, 4:5] * dy * dy)
@@ -99,7 +106,7 @@ def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
                     seen.sum(), (seen & (power[:, k] <= 0.0)).sum(),
                     live.sum(), used.sum()])
             w = torch.where(used, a * t, 0.0)
-            acc += r[:, k, 6:12, None] * w[:, None, :]
+            acc += r[:, k, 6:, None] * w[:, None, :]
             t = torch.where(used, test_t, t)
             ncon = torch.where(used, c0 + k + 1, ncon).to(torch.int32)
             done = done | fail
@@ -138,6 +145,7 @@ _VOID, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "blend_forward": [_VOID] * 4 + [_INT] * 2 + [_VOID] * 4,
     "blend_backward": [_VOID] * 6 + [_INT] * 2 + [_VOID] * 2,
+    "blend_infer": [_VOID] * 4 + [_INT] * 2 + [_VOID] * 3,
 }
 
 
@@ -149,13 +157,16 @@ def _kernel(name: str):
     return fn
 
 
-def _check_launch(name: str, rec: torch.Tensor, ints: dict, floats: dict):
-    """Device, type, shape and contiguity checks before a kernel launch."""
+def _check_launch(name: str, rec: torch.Tensor, ints: dict, floats: dict,
+                  rec_dtype=torch.float32, rec_cols: int = REC):
+    """Device, type, shape, contiguity and alignment checks before a
+    kernel launch (the kernels read a record with 16-byte loads)."""
     if rec.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {rec.device}")
-    _check(rec, "rec", torch.float32, 2)
-    if rec.shape[1] != REC or rec.data_ptr() % 16:
-        raise ValueError("rec must be a 16-byte aligned (P, 12) table")
+    _check(rec, "rec", rec_dtype, 2)
+    if rec.shape[1] != rec_cols or rec.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: rec must be a 16-byte aligned (P, {rec_cols}) table")
     for group, dtype in ((ints, torch.int32), (floats, torch.float32)):
         for arg, (x, ndim) in group.items():
             _check(x, arg, dtype, ndim)
@@ -205,14 +216,22 @@ def ctiles_to_image(x: torch.Tensor, opts: RenderOptions) -> torch.Tensor:
     return img[: opts.height, : opts.width]
 
 
-def assemble_outputs(accum, t_final, bg, opts: RenderOptions):
+def assemble_outputs_infer(accum, t_final, bg, opts: RenderOptions):
     """Kernel outputs → (color (H,W,3) with bg composited through T_final,
-    depth (H,W), flow (H,W,2), alpha (H,W) = 1 − T_final)."""
+    depth (H,W), alpha (H,W) = 1 − T_final), as `blend_pallas_infer`
+    (pallas_blend.py:1135-1139). Reads the first 4 features of `accum`."""
     color = ctiles_to_image(
         accum[:, 0:3, :] + t_final[:, None, :] * bg[None, :, None], opts)
     depth = ctiles_to_image(accum[:, 3:4, :], opts)[..., 0]
-    flow = ctiles_to_image(accum[:, 4:6, :], opts)
     alpha = ctiles_to_image((1.0 - t_final)[:, None, :], opts)[..., 0]
+    return color, depth, alpha
+
+
+def assemble_outputs(accum, t_final, bg, opts: RenderOptions):
+    """Kernel outputs → (color, depth, flow (H,W,2), alpha), the first two
+    and the last as `assemble_outputs_infer`."""
+    color, depth, alpha = assemble_outputs_infer(accum, t_final, bg, opts)
+    flow = ctiles_to_image(accum[:, 4:6, :], opts)
     return color, depth, flow, alpha
 
 
@@ -417,3 +436,91 @@ class Blend(torch.autograd.Function):
         d_rec = blend_backward(rec, gauss_id, tile_start, t_final,
                                n_contrib, dcot, ctx.opts.tiles_x)
         return d_rec, d_bg, None, None
+
+
+# --------------------------------------------------------------------------
+# Packed inference blend (kernel K3): forward only, no gradient
+# --------------------------------------------------------------------------
+
+def _pack2(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two (P,) f32 columns → one (P,) int32 word: bf16(hi) in the high
+    half, bf16(lo) in the low half (`pallas_blend._pack2`). The conversion
+    rounds to nearest even; the pair is viewed as one little-endian word,
+    so the low half comes first in memory."""
+    pair = torch.stack([lo, hi], dim=-1).to(torch.bfloat16)
+    return pair.view(torch.int32)[:, 0]
+
+
+def pack_records_infer(proc: ProcessedGaussians) -> torch.Tensor:
+    """(P, 8) int32 packed record table of the preprocessed gaussians (the
+    source rows of `_build_inst_data_infer`, pallas_blend.py:1008-1015):
+    words 0–4 the f32 bits of xy and conic, 5 opacity | red, 6 green |
+    blue, 7 depth | 0 as bf16 pairs (first name in the high half)."""
+    geom = torch.cat([proc.xy, proc.conic], dim=1).view(torch.int32)
+    rgb = proc.rgb
+    words = torch.stack([
+        _pack2(proc.opacity, rgb[:, 0]), _pack2(rgb[:, 1], rgb[:, 2]),
+        _pack2(proc.depth, torch.zeros_like(proc.depth))], dim=1)
+    return torch.cat([geom, words], dim=1)
+
+
+def unpack_records_infer(packed: torch.Tensor) -> torch.Tensor:
+    """The packed table as (P, 10) f32 records [xy, conic, opacity, rgb,
+    depth]: what kernel K3 decodes (a bf16 is the high half of an f32, so
+    the decode is exact)."""
+    geom = packed[:, 0:5].contiguous().view(torch.float32)
+    # (P, 6) halves of words 5..7, low half first: r, opa, b, g, 0, depth.
+    halves = packed[:, 5:8].contiguous().view(torch.bfloat16).to(
+        torch.float32)
+    return torch.cat([geom, halves[:, [1, 0, 3, 2, 5]]], dim=1)
+
+
+def blend_infer_plain(packed: torch.Tensor, gauss_id: torch.Tensor,
+                      tile_start: torch.Tensor, tile_count: torch.Tensor,
+                      tiles_x: int, pair_counts: dict | None = None):
+    """Plain PyTorch version of kernel K3: unpacks the (P, 8) table and
+    runs the sequential f32 compositing of `blend_forward_plain` on its 4
+    features. Returns (accum (T, 4, 256), t_final (T, 256)); `pair_counts`
+    as in `blend_forward_plain`."""
+    accum, t_final, _ = blend_forward_plain(
+        unpack_records_infer(packed), gauss_id, tile_start, tile_count,
+        tiles_x, pair_counts=pair_counts)
+    return accum, t_final
+
+
+def blend_infer(packed: torch.Tensor, gauss_id: torch.Tensor,
+                tile_start: torch.Tensor, tile_count: torch.Tensor,
+                tiles_x: int):
+    """Packed inference tile blend (kernel K3), forward only and not
+    differentiable. CPU tensors take the plain version; CUDA tensors launch
+    the kernel, which raises if it cannot build or launch. Returns (accum
+    (T, 4, 256), t_final (T, 256))."""
+    if packed.device.type == "cpu":
+        return blend_infer_plain(packed, gauss_id, tile_start, tile_count,
+                                 tiles_x)
+    out = launch_infer(packed, gauss_id, tile_start, tile_count, tiles_x)
+    blend_infer.launches += 1
+    return out
+
+
+blend_infer.launches = 0
+
+
+def launch_infer(packed, gauss_id, tile_start, tile_count, tiles_x: int):
+    """Launch K3 on PyTorch's current stream. Counts no launch:
+    `blend_infer` does."""
+    _check_launch("blend_infer", packed,
+                  dict(gauss_id=(gauss_id, 1), tile_start=(tile_start, 1),
+                       tile_count=(tile_count, 1)), {},
+                  rec_dtype=torch.int32, rec_cols=REC_INFER)
+    num_tiles = tile_start.shape[0]
+    accum = torch.empty((num_tiles, NUM_FEAT_INFER, PIX),
+                        dtype=torch.float32, device=packed.device)
+    t_final = torch.empty((num_tiles, PIX), dtype=torch.float32,
+                          device=packed.device)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    _raise_on(_kernel("blend_infer")(
+        packed.data_ptr(), gauss_id.data_ptr(), tile_start.data_ptr(),
+        tile_count.data_ptr(), num_tiles, tiles_x, accum.data_ptr(),
+        t_final.data_ptr(), stream), "blend_infer")
+    return accum, t_final

@@ -89,6 +89,8 @@ def preprocess(
     opts: RenderOptions,
     sh_mask: torch.Tensor | None = None,
     mean2d_tap: torch.Tensor | None = None,
+    colors_precomp: torch.Tensor | None = None,
+    cov3d_precomp: torch.Tensor | None = None,
 ) -> ProcessedGaussians:
     """Run the full preprocess for one camera.
 
@@ -103,12 +105,24 @@ def preprocess(
         gradient is the reference's viewspace_points gradient
         (`gaussian_renderer/__init__.py:27-31`, NDC units), the
         densification statistic.
+      colors_precomp: optional (P, 3), replaces the SH evaluation.
+      cov3d_precomp: optional (P, 6), replaces the covariance computation
+        (the reference's cov3D_precomp path). For 4D the caller shifts
+        `means3d` by the mean offset, folds the temporal marginal into
+        `opacity` and its 0.05 prefilter into `active`
+        (`gaussian_renderer/__init__.py:73-147`).
     """
     p = means3d.shape[0]
     mod = opts.scale_modifier
 
     # --- temporal conditioning -------------------------------------------
-    if opts.gaussian_dim == 4 and opts.rot_4d:
+    if cov3d_precomp is not None:
+        cov3 = cov3d_precomp
+        shifted = means3d
+        marginal_ok = torch.ones((p,), dtype=torch.bool,
+                                 device=means3d.device)
+        op = opacity
+    elif opts.gaussian_dim == 4 and opts.rot_4d:
         scales_xyzt = torch.cat([scales, scales_t[..., None]], dim=-1) * mod
         cov3, delta_mean, marginal, _ = gm.condition_cov4d_columnar(
             scales_xyzt, rotations, rotations_r, t, camera.timestamp,
@@ -183,17 +197,21 @@ def preprocess(
     ntiles = torch.where(op >= gm.ALPHA_MIN, (x1 - x0) * (y1 - y0), zero_i)
 
     # --- colour ------------------------------------------------------------
-    # The reference CUDA path evaluates SH at the UNSHIFTED means
-    # (forward.cu:480-487 passes orig_points).
-    dirs = means3d - camera.campos
-    dirs = dirs / torch.clamp(
-        torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True)), min=1e-12)
-    if opts.gaussian_dim == 3 or opts.force_sh_3d:
-        rgb = shlib.sh_to_rgb(shlib.eval_sh3d(sh, dirs, sh_mask))
+    if colors_precomp is not None:
+        rgb = colors_precomp
     else:
-        dir_t = t - camera.timestamp
-        rgb = shlib.sh_to_rgb(shlib.eval_sh4d(
-            sh, dirs, dir_t, opts.time_duration, sh_mask))
+        # The reference CUDA path evaluates SH at the UNSHIFTED means
+        # (forward.cu:480-487 passes orig_points).
+        dirs = means3d - camera.campos
+        dirs = dirs / torch.clamp(
+            torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True)),
+            min=1e-12)
+        if opts.gaussian_dim == 3 or opts.force_sh_3d:
+            rgb = shlib.sh_to_rgb(shlib.eval_sh3d(sh, dirs, sh_mask))
+        else:
+            dir_t = t - camera.timestamp
+            rgb = shlib.sh_to_rgb(shlib.eval_sh4d(
+                sh, dirs, dir_t, opts.time_duration, sh_mask))
 
     return ProcessedGaussians(
         xy=xy,

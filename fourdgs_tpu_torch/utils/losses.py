@@ -1,5 +1,5 @@
-"""Image losses of the training step: L1, windowed SSIM, PSNR, the
-photometric loss and the sky-opacity loss.
+"""Image losses and metrics: L1/L2, windowed SSIM, multi-scale SSIM, PSNR,
+the photometric loss and the sky-opacity loss.
 
 PyTorch counterpart of `fourdgs_tpu/utils/losses.py` (its f32 path,
 `fast=False`; the bf16 split there is a TPU device). Reference semantics
@@ -21,9 +21,17 @@ import torch
 _C1 = 0.01 ** 2
 _C2 = 0.03 ** 2
 
+# torchmetrics MultiScaleStructuralSimilarityIndexMeasure defaults (the
+# reference's msssim metric, `loss_utils.py:66-71`).
+_MSSSIM_BETAS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - target))
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
 
 
 @functools.lru_cache(maxsize=16)
@@ -58,10 +66,8 @@ def _ensure_batched(img: torch.Tensor) -> torch.Tensor:
     return img[None] if img.dim() == 3 else img
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
-         sigma: float = 1.5, size_average: bool = True) -> torch.Tensor:
-    """Mean SSIM (reference `loss_utils.py:34-64` semantics)."""
-    img1, img2 = _ensure_batched(img1), _ensure_batched(img2)
+def _ssim_maps(img1, img2, window_size, sigma):
+    """Per-pixel (ssim, cs) maps for batched NHWC images."""
     mu1 = _blur(img1, window_size, sigma)
     mu2 = _blur(img2, window_size, sigma)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
@@ -69,10 +75,43 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     sigma2_sq = _blur(img2 * img2, window_size, sigma) - mu2_sq
     sigma12 = _blur(img1 * img2, window_size, sigma) - mu1_mu2
     cs = (2 * sigma12 + _C2) / (sigma1_sq + sigma2_sq + _C2)
-    m = ((2 * mu1_mu2 + _C1) / (mu1_sq + mu2_sq + _C1)) * cs
+    return ((2 * mu1_mu2 + _C1) / (mu1_sq + mu2_sq + _C1)) * cs, cs
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+         sigma: float = 1.5, size_average: bool = True) -> torch.Tensor:
+    """Mean SSIM (reference `loss_utils.py:34-64` semantics)."""
+    m, _ = _ssim_maps(_ensure_batched(img1), _ensure_batched(img2),
+                      window_size, sigma)
     if size_average:
         return torch.mean(m)
     return torch.mean(m, dim=(1, 2, 3))
+
+
+def msssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+           sigma: float = 1.5) -> torch.Tensor:
+    """Multi-scale SSIM, 5 scales, torchmetrics-default betas and
+    relu-normalised cs terms; 2x2 average-pool downsampling."""
+    img1, img2 = _ensure_batched(img1), _ensure_batched(img2)
+    n_scales = len(_MSSSIM_BETAS)
+    out = None
+    for i, beta in enumerate(_MSSSIM_BETAS):
+        s_map, cs_map = _ssim_maps(img1, img2, window_size, sigma)
+        val = torch.relu(torch.mean(
+            s_map if i == n_scales - 1 else cs_map, dim=(1, 2, 3))) ** beta
+        out = val if out is None else out * val
+        if i < n_scales - 1:
+            img1 = _avg_pool2(img1)
+            img2 = _avg_pool2(img2)
+    return torch.mean(out)
+
+
+def _avg_pool2(img: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 average pool (NHWC), matching F.avg_pool2d (floor)."""
+    b, h, w, c = img.shape
+    img = img[:, : h // 2 * 2, : w // 2 * 2]
+    img = img.reshape(b, h // 2, 2, w // 2, 2, c)
+    return img.mean(dim=(2, 4))
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,9 @@
 """The port stands alone: every module of fourdgs_tpu_torch, and
 chip_smoke.py, import with JAX and the JAX package blocked, and reading a
-checkpoint written by the JAX package loads neither."""
+checkpoint written by the JAX package (through GaussianRenderer, and
+through a config file, a scene on disk, Evaluator and render_cli) loads
+neither. PyYAML and Pillow are imported by the functions that need them,
+not when a module is imported."""
 
 import os
 import subprocess
@@ -35,6 +38,7 @@ names = ["fourdgs_tpu_torch"] + [
                                           "fourdgs_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+early = sorted(m for m in ("yaml", "PIL") if m in sys.modules)
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(root, "chip_smoke.py"))
 chip_smoke = importlib.util.module_from_spec(spec)
@@ -51,9 +55,22 @@ cam = Camera(uid=0, rot=np.eye(3), trans=np.zeros(3), fovx=1.0, fovy=1.0,
 color = renderer(cam)[0]
 assert tuple(color.shape) == (16, 24, 3)
 
+# The evaluation path: YAML config, scene on disk, checkpoint, render_cli.
+from fourdgs_tpu_torch import render_cli
+out_dir = os.path.join(os.path.dirname(sys.argv[2]), "renders")
+rc = render_cli.main(["--config", sys.argv[3], "--checkpoint", sys.argv[2],
+                      "--device", "cpu", "--fast", "--max_views", "1",
+                      "--out", out_dir])
+assert rc == 0 and os.path.exists(os.path.join(out_dir, "metrics.json"))
+assert "yaml" in sys.modules and "PIL" in sys.modules
+
 loaded = sorted(m for m in sys.modules if banned(m))
-print("MODULES", len(names), "BANNED", loaded)
+print("MODULES", len(names), "EARLY", early, "BANNED", loaded)
 """
+
+REQUIRED = ("config", "render_cli", "viewer", "data.scene", "data.colmap",
+            "data.pointcloud", "engine.evaluator", "models.envmap",
+            "models.ply_io", "utils.image")
 
 
 def test_port_imports_no_jax(tmp_path, rng):
@@ -78,12 +95,22 @@ def test_port_imports_no_jax(tmp_path, rng):
         max_radii2d=np.zeros(p, np.float32))
     path = str(tmp_path / "chkpnt.pkl")
     save_checkpoint(path, state, None, step=1)
+    fixture = os.path.join(ROOT, "tests", "fixtures", "synth_gate")
+    cfg_path = str(tmp_path / "cfg.yaml")
+    with open(cfg_path, "w") as f:
+        f.write("gaussian_dim: 4\nrot_4d: true\ntime_duration: [0.0, 1.0]\n"
+                "num_pts: 50\nModelParams:\n  resolution: 2\n"
+                f"  source_path: {fixture}\n  eval: true\n")
+    for name in REQUIRED:
+        assert os.path.exists(os.path.join(
+            ROOT, "fourdgs_tpu_torch", *name.split(".")) + ".py"), name
 
-    out = subprocess.run([sys.executable, "-c", CHILD, ROOT, path],
+    out = subprocess.run([sys.executable, "-c", CHILD, ROOT, path, cfg_path],
                          capture_output=True, text=True, timeout=240,
                          cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr[-4000:]
     line = [ln for ln in out.stdout.splitlines()
             if ln.startswith("MODULES")][-1]
     assert line.endswith("BANNED []"), line
-    assert int(line.split()[1]) >= 14
+    assert "EARLY []" in line, line
+    assert int(line.split()[1]) >= 14 + len(REQUIRED)

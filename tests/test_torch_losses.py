@@ -1,7 +1,8 @@
 """The port's image losses against the JAX package's f32 path
-(`fast=False`): values and gradients of l1, ssim, psnr, the photometric
-loss and the sky-opacity loss, on the same numpy images, at rtol 1e-5
-(gradients also atol 1e-8, for entries that are 0 up to rounding)."""
+(`fast=False`): values and gradients of l1, l2, ssim, psnr, the
+photometric loss and the sky-opacity loss, on the same numpy images, at
+rtol 1e-5 (gradients also atol 1e-8, for entries that are 0 up to
+rounding); multi-scale SSIM at rtol 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ def _check(port, ref):
 
 LOSSES = {
     "l1": (port_losses.l1_loss, jax_losses.l1_loss),
+    "l2": (port_losses.l2_loss, jax_losses.l2_loss),
     "ssim": (port_losses.ssim, jax_losses.ssim),
     "psnr": (port_losses.psnr, jax_losses.psnr),
     "photometric": (lambda a, b: port_losses.photometric_loss(a, b, 0.2)[0],
@@ -74,3 +76,45 @@ def test_photometric_parts_and_ssim_per_image(rng):
     # Identical images: SSIM 1, up to f32 rounding.
     assert abs(float(port_losses.ssim(torch.as_tensor(a),
                                       torch.as_tensor(a))) - 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(96, 80, 3), (2, 81, 99, 3)])
+def test_msssim_matches_jax(rng, shape):
+    """5 scales: the smallest is 6x5 (and 5x6 after odd floors). rtol 1e-5
+    on the value; the pooling alone is compared exactly."""
+    a, b = _images(rng, shape)
+    got = port_losses.msssim(torch.as_tensor(a), torch.as_tensor(b))
+    want = jax_losses.msssim(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
+    assert 0.0 < float(got) < 1.0
+    batched = a if a.ndim == 4 else a[None]
+    np.testing.assert_allclose(
+        port_losses._avg_pool2(torch.as_tensor(batched)).numpy(),
+        np.asarray(jax_losses._avg_pool2(jnp.asarray(batched))), rtol=1e-6)
+    same = port_losses.msssim(torch.as_tensor(a), torch.as_tensor(a))
+    assert abs(float(same) - 1.0) < 1e-5
+
+
+def test_image_utils_match_jax(rng, tmp_path):
+    from fourdgs_tpu.utils import image as jax_image
+    from fourdgs_tpu_torch.utils import image as port_image
+
+    a, b = _images(rng, (2, 12, 10, 3))
+    np.testing.assert_allclose(
+        port_image.mse(torch.as_tensor(a), torch.as_tensor(b)).numpy(),
+        np.asarray(jax_image.mse(jnp.asarray(a), jnp.asarray(b))), rtol=RTOL)
+    d = rng.normal(3.0, 1.0, (9, 7)).astype(np.float32)
+    np.testing.assert_allclose(
+        port_image.easy_cmap(torch.as_tensor(d)).numpy(),
+        np.asarray(jax_image.easy_cmap(jnp.asarray(d))), rtol=RTOL)
+    port_image.mkdir_p(str(tmp_path / "a" / "b"))
+    for name in ("chkpnt7.pkl", "chkpnt30000.pkl", "chkpnt_best.pkl",
+                 "events.out.99999"):
+        (tmp_path / "a" / name).write_text("")
+    for prefix in ("chkpnt", ""):
+        assert (port_image.search_for_max_iteration(str(tmp_path / "a"),
+                                                    prefix)
+                == jax_image.search_for_max_iteration(str(tmp_path / "a"),
+                                                      prefix))
+    with pytest.raises(ValueError):
+        port_image.search_for_max_iteration(str(tmp_path / "a" / "b"))

@@ -164,6 +164,27 @@ def test_renderer_serves_jax_checkpoint(rng, tmp_path):
     assert 0.0 <= float(color.min()) and float(color.max()) <= 1.0
 
 
+def test_renderer_infer_switch(rng):
+    """GaussianRenderer(infer=True) serves through the packed inference
+    blend: within bf16 rounding (atol 1.5e-2, depth scaled by its largest
+    value) of the exact renderer, the same counts, not identical."""
+    scene = random_scene(rng, p=56)
+    model = from_jax_params(_raw_params(scene, capacity=64)._asdict(), 56,
+                            device="cpu")
+    cam = port_camera(look_at_camera(width=OPTS["width"],
+                                     height=OPTS["height"], timestamp=0.4))
+    exact = GaussianRenderer(model, RenderOptions(**OPTS), BG.tolist())(cam)
+    fast = GaussianRenderer(model, RenderOptions(**OPTS), BG.tolist(),
+                            infer=True)(cam)
+    np.testing.assert_allclose(fast[0].numpy(), exact[0].numpy(), atol=1.5e-2)
+    np.testing.assert_allclose(
+        fast[1].numpy(), exact[1].numpy(),
+        atol=1.5e-2 * max(1.0, float(exact[1].abs().max())))
+    np.testing.assert_allclose(fast[2].numpy(), exact[2].numpy(), atol=1.5e-2)
+    assert fast[3:] == exact[3:] and fast[3] > 0
+    assert float((fast[0] - exact[0]).abs().max()) > 0.0
+
+
 def test_checkpoint_refuses_other_jax_classes(tmp_path):
     path = tmp_path / "bad.pkl"
     with open(path, "wb") as f:
@@ -183,6 +204,16 @@ def test_mark_visible_and_infer(rng):
                      port_cam.viewmatrix).numpy(),
         np.asarray(jax_mark_visible(jnp.asarray(scene["means3d"]),
                                     cam.arrays().viewmatrix)))
-    with pytest.raises(NotImplementedError, match="K3"):
-        render(**to_torch(scene), camera=port_cam, bg=torch.zeros(3),
-               opts=RenderOptions(height=64, width=64), infer=True)
+    # infer=True takes the packed inference blend (kernel K3's plain
+    # version here): the same visibility, no flow, within bf16 rounding
+    # (atol 1.5e-2) of the exact path.
+    kw = dict(camera=port_cam, bg=torch.zeros(3),
+              opts=RenderOptions(height=64, width=64))
+    fast = render(**to_torch(scene), **kw, infer=True)
+    exact = render(**to_torch(scene), **kw)
+    np.testing.assert_array_equal(fast.visible.numpy(),
+                                  exact.visible.numpy())
+    assert int(fast.visible.sum()) <= 15 and fast.num_rendered > 0
+    assert float(fast.flow.abs().max()) == 0.0
+    np.testing.assert_allclose(fast.color.numpy(), exact.color.numpy(),
+                               atol=1.5e-2)

@@ -2,6 +2,8 @@
 the same numpy inputs handed to the JAX package and to the port, on the
 CPU."""
 
+import os
+
 import numpy as np
 import torch
 
@@ -68,3 +70,45 @@ def corner_scene(rng, p=48):
     scene["means3d"][:, 2] = rng.uniform(2.0, 3.0, p)
     scene["scales"] = (scene["scales"] * 0.2).astype(np.float32)
     return scene
+
+
+SYNTH_GATE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "fixtures", "synth_gate")
+# Config overrides (both packages' `load_config`) for the fixture at 48 px.
+SYNTH_GATE_OVERRIDES = dict(
+    gaussian_dim=4, rot_4d=True, time_duration=[0.0, 1.0], num_pts=300,
+    model=dict(source_path=SYNTH_GATE, resolution=2, eval=True),
+    pipeline=dict(eval_shfs_4d=True, env_map_res=8))
+
+
+def jax_synth_gate_state(seed=0, p=300):
+    """(JAX GaussianState, JAX EnvMapState) on the fixture's point cloud,
+    with visible sizes and some transparency, and a random 8x8 environment
+    map: what a test saves with the JAX package's `save_checkpoint`."""
+    import jax.numpy as jnp
+
+    from fourdgs_tpu.data import scene as jax_scene
+    from fourdgs_tpu.models import envmap as jax_env
+    from fourdgs_tpu.models import gaussians as jax_gaussians
+
+    rng = np.random.default_rng(seed)
+    pcd = jax_scene.load_scene(SYNTH_GATE, num_pts=p, resolution=2,
+                               seed=seed).point_cloud
+    n = len(pcd.points)
+    state = jax_gaussians.init_from_pcd(
+        pcd.points, pcd.colors, sh_channels=48, time_duration=(0.0, 1.0),
+        times=pcd.times, capacity=n + 20, seed=seed)
+    params = state.params
+    params = params._replace(
+        scaling=params.scaling.at[:n].set(
+            jnp.asarray(rng.normal(-2.6, 0.3, (n, 3)), jnp.float32)),
+        rotation_r=params.rotation_r.at[:n].set(
+            jnp.asarray(rng.normal(size=(n, 4)), jnp.float32)),
+        f_rest=params.f_rest.at[:n].set(
+            jnp.asarray(rng.normal(0, 0.1, (n, 47, 3)), jnp.float32)),
+        opacity=params.opacity.at[:n].set(
+            jnp.asarray(rng.normal(0.5, 1.0, (n, 1)), jnp.float32)))
+    env = jax_env.init_envmap(8)._replace(
+        texture=jnp.asarray(rng.random((8, 8, 3)), jnp.float32),
+        count=jnp.asarray(9, jnp.int32))
+    return state._replace(params=params), env
