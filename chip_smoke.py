@@ -21,7 +21,8 @@ times them:
               pixels. The backward blend kernel K2 vs its plain version on
               the same scenes with random image cotangents (seed 2): the
               per-gaussian gradients within the scale-normalised atol 2e-4
-              (|k - p| / max(|p|.max(), 1e-3), per record column)
+              (|k - p| / max(|p|.max(), 1e-3), per record column; its
+              atomics sum in another order on every run)
   4. serve    100k 4D gaussians (rot_4d, 48x3 SH) at 800x800, the workload
               of bench.py, weights from seed 0: GaussianRenderer answers 4
               requests; no dropped instance, finite outputs, one kernel
@@ -60,9 +61,13 @@ times them:
   9. viewer   a ViewerServer on a free local port answers one SIBR-format
               request through Evaluator.render_arrays and K3: the bytes
               equal the render's 8-bit image
- 10. kernels  one JSON line per the port's kernel table: launches on the
-              main paths, error, time, plain time and the card's bound for
-              the pairs these inputs need
+ 10. kernels  what the warp-private walks of K1 and K2 visit on these
+              inputs (the share of (warp, instance) pairs that passes the
+              cull, K2's shuffles and atomics per camera, counted by the
+              plain versions; K3's as K1's cull would leave them), then one
+              JSON line per the port's kernel table: launches on the main
+              paths, error, time, plain time and the card's bound for the
+              work these inputs need
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero before it. Imports torch, numpy and the port only.
@@ -107,7 +112,8 @@ from fourdgs_tpu_torch.viewer import ViewerServer  # noqa: E402
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32_OPS = 67e12        # f32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12        # HBM bytes/s
-# f32 operations of csrc/blend_forward.cu per (pixel, instance) pair, by
+# f32 operations of a forward blend that evaluates every (pixel, instance)
+# pair of a tile until the pixel is done, as csrc/blend_infer.cu does, by
 # how far the pair goes (the classes of blend_forward_plain's pair counts).
 # Every pair: dx, dy (2); power (9); the power test (1).
 OPS_EVALUATED = 12
@@ -118,20 +124,37 @@ OPS_POWER_OK = 9
 OPS_ALPHA_OK = 3
 # Used: w = alpha·T (1); 6 feature multiply-adds (12).
 OPS_USED = 13
-# csrc/blend_infer.cu composites 4 features: w (1) and 4 multiply-adds (8);
-# the other classes cost what they cost in K1.
+# csrc/blend_infer.cu composites 4 features: w (1) and 4 multiply-adds (8).
 OPS_INFER_USED = 9
-# f32 operations of csrc/blend_backward.cu, by the classes of
-# blend_backward_plain's pair counts. Below the pixel's n_contrib: the
-# falloff as in K1 (OPS_EVALUATED), and where power <= 0, expf and the
-# alpha terms (OPS_POWER_OK).
-# Used: 1 − alpha, T / (1 − alpha), w; gdot (6 mul, 5 add); dalpha (4);
-# sigma (2); dpower (1); the x, y sums (2 × 3) and their gradients (2);
-# the conic gradients (3 + 2 + 3); dopa (1); 4 feature gradients. A
-# negation is an operand modifier, not an operation.
+# K1 and K2 (csrc/blend_forward.cu, blend_backward.cu) cull by warp, skip
+# expf under a per-instance threshold and, in K1, share the power's column
+# terms between a thread's two pixels. The rule of their counts: a pair is
+# charged what the cheapest scheme now known computes for it, and a test
+# that only skips work is charged as if its margin were zero, so that no
+# count exceeds what the kernels do.
+# Per (warp, instance) pair that a warp tests, `cull_keep` on one lane: the
+# four offsets (4), the two nearest (4), two edge minima (12 each), their
+# choice and the bound (4), the largest offsets (2) and magnitude (9), the
+# conic's sign and determinant (5), margin and test (3).
+OPS_CULL = 55
+# Per evaluated pair of a (warp, instance) pair that passes the cull, in
+# K1: the column terms, shared by two pixels (4 / 2), the row terms (3),
+# power (4), the power test and the threshold test (2).
+OPS_KEPT_FORWARD = 11
+# The same in K2, one pixel per thread: column (4), row (3), power (4),
+# the two tests (2).
+OPS_KEPT_BACKWARD = 13
+# alpha >= 1/255 (the only pairs an exact threshold test lets through):
+# expf (6), opa·e, the clamp, the alpha test (3).
+OPS_EXP = 9
+# K2's used pair after that: 1 − alpha, T / (1 − alpha), w; gdot (6 mul,
+# 5 add); dalpha (4); sigma (2); dpower (1); the x, y sums (2 × 3) and
+# their gradients (2); the conic gradients (3 + 2 + 3); dopa (1); 4
+# feature gradients. A negation is an operand modifier, not an operation.
 OPS_BWD_USED = 42
 # The per-gaussian sums: NUM_GRAD adds per used pair, less NUM_GRAD per
-# (warp, instance) pair with a used pixel, whose sum the atomics add.
+# (tile, instance) pair with a used pixel, whose sum the atomics on the
+# output add.
 
 TOL_ACCUM, TOL_T, MIN_NCON_SHARE = 1e-5, 1e-6, 0.9999
 TOL_COLOR = 1e-4
@@ -420,51 +443,90 @@ def kernel_cases(device):
 # Serving at full width
 # --------------------------------------------------------------------------
 
-def pair_bound_ms(pairs, bins, num_gaussians, ops_used=OPS_USED,
-                  rec_bytes=blend.REC * 4, out_planes=8):
-    """Least time for a forward blend on these inputs: the operations of
-    the pairs they need, by class (the plain version's counts), against
-    the f32 peak, or the bytes (record table, ids, ranges and the output
-    planes, each once) against the memory peak, whichever is larger. The
-    defaults are K1's: 48-byte records, 13 operations per used pair, 8
-    output planes (6 features, T_final, n_contrib)."""
-    ops = (pairs["evaluated"] * OPS_EVALUATED
-           + pairs["power_ok"] * OPS_POWER_OK
-           + pairs["alpha_ok"] * OPS_ALPHA_OK + pairs["used"] * ops_used)
-    ops_s = ops / PEAK_F32_OPS
-    tiles = bins.tile_start.numel()
-    nbytes = (num_gaussians * rec_bytes + bins.num_rendered * 4
-              + tiles * 8 + tiles * blend.PIX * out_planes * 4)
-    bytes_s = nbytes / PEAK_BYTES
+def bound_ms(ops, nbytes):
+    """(ms, what bounds, operations): the larger of the operations against
+    the f32 peak and the bytes against the memory peak."""
+    ops_s, bytes_s = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes"), ops
+
+
+def forward_bytes(bins, num_gaussians, rec_bytes, out_planes):
+    """Bytes a forward blend must move: the record table, the ids, the
+    tiles' ranges and the output planes, each once."""
+    tiles = bins.tile_start.numel()
+    return (num_gaussians * rec_bytes + bins.num_rendered * 4 + tiles * 8
+            + tiles * blend.PIX * out_planes * 4)
+
+
+def forward_bound_ms(pairs, bins, num_gaussians):
+    """Least time for K1 on these inputs: the cull of every (warp,
+    instance) pair a warp tests, the falloff of the evaluated pairs in
+    those that pass, expf and the transmittance test where alpha >= 1/255
+    and the compositing of the used pairs (the plain version's counts),
+    against the f32 peak; or the bytes (48-byte records; 6 features,
+    T_final and n_contrib out), whichever is larger."""
+    ops = (pairs["warp_live"] * OPS_CULL
+           + pairs["kept_evaluated"] * OPS_KEPT_FORWARD
+           + pairs["alpha_ok"] * (OPS_EXP + OPS_ALPHA_OK)
+           + pairs["used"] * OPS_USED)
+    return bound_ms(ops, forward_bytes(bins, num_gaussians, blend.REC * 4, 8))
 
 
 def infer_bound_ms(pairs, bins, num_gaussians):
-    """`pair_bound_ms` for K3: 32-byte records, 9 operations per used
-    pair, 5 output planes (4 features, T_final)."""
-    return pair_bound_ms(pairs, bins, num_gaussians, OPS_INFER_USED,
-                         blend.REC_INFER * 4, blend.NUM_FEAT_INFER + 1)
+    """Least time for K3 on these inputs, which evaluates every pair of a
+    tile: the operations of the pairs by class, or the bytes (32-byte
+    records; 4 features and T_final out), whichever is larger."""
+    ops = (pairs["evaluated"] * OPS_EVALUATED
+           + pairs["power_ok"] * OPS_POWER_OK
+           + pairs["alpha_ok"] * OPS_ALPHA_OK
+           + pairs["used"] * OPS_INFER_USED)
+    return bound_ms(ops, forward_bytes(bins, num_gaussians,
+                                       blend.REC_INFER * 4,
+                                       blend.NUM_FEAT_INFER + 1))
 
 
 def backward_bound_ms(pairs, args):
-    """Least time for K2 on these inputs: the operations of the pairs they
-    need, by class (the plain version's counts), against the f32 peak, or
-    the bytes (records, ids, tile starts, T_final, n_contrib, the
-    cotangents and the (P, 12) output each once, plus 4 bytes per atomic)
-    against the memory peak, whichever is larger."""
+    """Least time for K2 on these inputs: the cull, the falloff of the
+    evaluated pairs in the (warp, instance) pairs that pass, expf and the
+    gradient terms of the used pairs and their per-gaussian sums (the
+    plain version's counts) against the f32 peak; or the bytes (records,
+    ids, tile starts, T_final, n_contrib, the cotangents and the (P, 12)
+    output each once, plus a 40-byte row per (tile, instance) pair the
+    atomics add) against the memory peak, whichever is larger."""
     rec, gauss_id, tile_start, t_final, _, dcot, _ = args
-    ops = (pairs["evaluated"] * OPS_EVALUATED
-           + pairs["power_ok"] * OPS_POWER_OK
-           + pairs["used"] * OPS_BWD_USED
-           + (pairs["used"] - pairs["warp_active"]) * blend.NUM_GRAD)
-    ops_s = ops / PEAK_F32_OPS
+    ops = (pairs["warp_live"] * OPS_CULL
+           + pairs["kept_evaluated"] * OPS_KEPT_BACKWARD
+           + pairs["used"] * (OPS_EXP + OPS_BWD_USED)
+           + (pairs["used"] - pairs["tile_active"]) * blend.NUM_GRAD)
     nbytes = (2 * rec.numel() * 4 + gauss_id.numel() * 4
               + tile_start.numel() * 4 + t_final.numel() * 8
-              + dcot.numel() * 4 + pairs["warp_active"] * blend.NUM_GRAD * 4)
-    bytes_s = nbytes / PEAK_BYTES
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
-                                       else "bytes"), ops
+              + dcot.numel() * 4 + pairs["tile_active"] * blend.NUM_GRAD * 4)
+    return bound_ms(ops, nbytes)
+
+
+def cull_report(pairs):
+    """What the plain version counted of a warp-private walk: the (warp,
+    instance) pairs its warps test, the share that passes the cull, and
+    the share of those with a used pixel."""
+    return dict(warp_live=pairs["warp_live"],
+                kept_share=pairs["warp_kept"] / max(pairs["warp_live"], 1),
+                active_share_of_kept=pairs["warp_active"]
+                / max(pairs["warp_kept"], 1))
+
+
+def backward_traffic(pairs):
+    """K2's cross-lane and atomic traffic on these inputs, from the plain
+    version's counts: a 16-shuffle sum and 10 shared-memory adds per
+    (warp, instance) pair with a used pixel, three vector atomics on the
+    output per (tile, instance) pair with one; and what one shuffle tree
+    and one scalar atomic per value and warp would take."""
+    return dict(
+        shuffles=pairs["warp_active"] * 16,
+        shared_adds=pairs["warp_active"] * blend.NUM_GRAD,
+        output_vector_atomics=pairs["tile_active"] * 3,
+        tree_shuffles=pairs["warp_active"] * 5 * blend.NUM_GRAD,
+        scalar_atomics=pairs["warp_active"] * blend.NUM_GRAD)
 
 
 def time_call(fn, reps):
@@ -588,12 +650,12 @@ def serve(label, p, h, w, time_duration, scale_mu, timestamps, timed,
               f"{color_err} vs the plain blend")
         kernel_ms = time_kernel(rec, bins, opts)
         plain_ms = time_plain(rec, bins, opts)
-        bound_ms, bound_by, ops = pair_bound_ms(pairs, bins, p)
+        bound, bound_by, ops = forward_bound_ms(pairs, bins, p)
         row = dict(timestamp=ts, num_rendered=nr, max_per_tile=int(mpt),
                    instances_dropped=dropped, color_err_vs_plain=color_err,
                    kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, pairs=pairs,
-                   operations=ops, **report)
+                   bound_ms=bound, bound_by=bound_by, pairs=pairs,
+                   cull=cull_report(pairs), operations=ops, **report)
         per_request.append(row)
         emit({"phase": label, "request": row})
 
@@ -721,10 +783,11 @@ def train_phase(device, p=100_000, hw=800, steps=5):
         abs_err = float((k - pl).abs().max())
         check(err <= TOL_GRAD, f"train camera {cam_i}: K2 gradient error "
               f"{err} vs the plain version")
-        bound_ms, bound_by, ops = backward_bound_ms(pairs, args)
+        bound, bound_by, ops = backward_bound_ms(pairs, args)
         k2_rows.append(dict(
             camera=cam_i, grad_err=err, abs_err=abs_err, pairs=pairs,
-            operations=ops, bound_ms=bound_ms, bound_by=bound_by,
+            cull=cull_report(pairs), traffic=backward_traffic(pairs),
+            operations=ops, bound_ms=bound, bound_by=bound_by,
             ms=time_call(lambda: blend.launch_backward(*args), 20),
             plain_ms=time_call(lambda: blend.blend_backward_plain(*args), 1),
             instances=int(args[1].numel()),
@@ -887,10 +950,11 @@ def k3_row(packed, bins, rec, opts, num_gaussians, label):
     diff = infer_vs_exact(k3, k1)
     check_infer_vs_exact(diff, label)
     args = kernel_args(packed, bins, opts)
-    bound_ms, bound_by, ops = infer_bound_ms(pairs, bins, num_gaussians)
+    bound, bound_by, ops = infer_bound_ms(pairs, bins, num_gaussians)
     return dict(
         num_rendered=bins.num_rendered, max_per_tile=int(bins.max_per_tile),
-        pairs=pairs, operations=ops, bound_ms=bound_ms, bound_by=bound_by,
+        pairs=pairs, cull=cull_report(pairs), operations=ops,
+        bound_ms=bound, bound_by=bound_by,
         ms=time_call(lambda: blend.launch_infer(*args), 20),
         k1_ms=time_kernel(rec, bins, opts),
         plain_ms=time_call(lambda: blend.blend_infer_plain(*args), 1),
@@ -1188,6 +1252,12 @@ def main() -> int:
     # K2 at the first training step's two cameras (means over the two), K3
     # at the first 800x800 evaluation view.
     mean = lambda rs, key: float(np.mean([r[key] for r in rs]))  # noqa: E731
+    emit({"phase": "warp_walk",
+          "blend_forward": [dict(timestamp=r["timestamp"], **r["cull"])
+                            for r in rows],
+          "blend_backward": [dict(camera=r["camera"], **r["cull"],
+                                  **r["traffic"]) for r in k2_rows],
+          "blend_infer_under_k1_cull": k3_row_800["cull"]})
     emit({"kernels": [{
         "name": "blend_forward",
         "route": "cuda",

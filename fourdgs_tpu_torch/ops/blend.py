@@ -16,6 +16,13 @@ and K2 adds its gradients per gaussian into a (P, 12) table of the same
 layout. K3 reads a packed (P, 8) int32 table instead
 (`pack_records_infer`): xy and conic as f32 bits, opacity, rgb and depth
 rounded to bf16 pairs. The JAX package's `blend` is here `Blend.apply`.
+
+K1 and K2 give each warp a block of a tile's pixels (K2 8x4, one pixel per
+thread; K1 8x8, two per thread) and let it skip the instances that cannot
+reach alpha >= 1/255 anywhere in that block. The test is `warp_cull_keep`,
+written here once more in PyTorch (the kernels' is `cull_keep` in
+`csrc/alpha_terms.cuh`); the plain versions use it only to count, under
+`pair_counts`, what the kernels' walks visit.
 """
 
 from __future__ import annotations
@@ -38,7 +45,13 @@ NUM_FEAT_INFER = 4  # rgb(3) + depth(1): what the inference blend composites
 NUM_GRAD = 10      # record columns K2 differentiates: all but the flow
 COT = NUM_FEAT + 1  # per-pixel backward inputs: dc(6) + tf_term
 WARP = 32
+WARP_W, WARP_H = 8, 4   # the lanes of a warp: 8 across, 4 down
+FORWARD_ROWS = 2   # pixels per thread of K1, WARP_H rows apart; K2 has 1
 PLAIN_CHUNK = 32   # ranks per gather step of the plain versions
+# Margins of the two tests that skip work and decide nothing
+# (csrc/alpha_terms.cuh: kSkipMargin, kCullRel).
+SKIP_MARGIN = 1e-3
+CULL_REL = 1e-5
 
 
 def _tile_pixel_coords(num_tiles: int, tiles_x: int, device):
@@ -49,6 +62,113 @@ def _tile_pixel_coords(num_tiles: int, tiles_x: int, device):
     px = ((tids % tiles_x) * TILE + pp % TILE).to(torch.float32)
     py = ((tids // tiles_x) * TILE + pp // TILE).to(torch.float32)
     return px, py
+
+
+def by_warp(x: torch.Tensor, rows: int = 1) -> torch.Tensor:
+    """(..., 256) per-pixel values in tile order → (..., warps, 32·rows)
+    grouped by the warp that owns the pixel, where a thread owns `rows`
+    pixels of one column, 4 rows apart: warp w covers the block 8 wide and
+    4·rows tall at column (w % 2)·8 and row (w // 2)·4·rows."""
+    lead = x.shape[:-1]
+    tall = WARP_H * rows
+    x = x.reshape(*lead, TILE // tall, tall, TILE // WARP_W, WARP_W)
+    return x.transpose(-3, -2).reshape(*lead, PIX // (WARP * rows),
+                                       WARP * rows)
+
+
+def warp_rects(num_tiles: int, tiles_x: int, device, rows: int = 1):
+    """Bounds (x0, x1, y0, y1), each (num_tiles, warps) f32 and inclusive,
+    of the pixel coordinates of every warp's block (see `by_warp`)."""
+    tall = WARP_H * rows
+    tids = torch.arange(num_tiles, device=device)[:, None]
+    w = torch.arange(PIX // (WARP * rows), device=device)[None, :]
+    x0 = ((tids % tiles_x) * TILE
+          + (w % (TILE // WARP_W)) * WARP_W).to(torch.float32)
+    y0 = ((tids // tiles_x) * TILE
+          + (w // (TILE // WARP_W)) * tall).to(torch.float32)
+    return x0, x0 + (WARP_W - 1), y0, y0 + (tall - 1)
+
+
+def skip_threshold(opacity: torch.Tensor) -> torch.Tensor:
+    """log(1 / (255·opacity)) − SKIP_MARGIN: a pair whose power is below it
+    cannot reach alpha >= 1/255, whatever expf and the product round to.
+    +inf for opacity 0, NaN (which skips nothing) for a negative one."""
+    return -torch.log(255.0 * opacity) - SKIP_MARGIN
+
+
+def _edge_min(s, b, f, e, lo, hi):
+    """Least s·e² + 2·b·e·t + f·t² over t in [lo, hi], for f > 0."""
+    be = b * e
+    t = torch.minimum(torch.maximum(-be / f, lo), hi)
+    return s * e * e + 2.0 * be * t + f * t * t
+
+
+def rect_power_bound(rec: torch.Tensor, x0, x1, y0, y1):
+    """(bound, mag): the largest power of the instance `rec[..., 0:5]`
+    over the rectangle [x0, x1] x [y0, y1] of pixel coordinates, for a
+    positive definite conic, and the largest magnitude that the power's
+    terms can have there. The bound is 0 if the centre lies
+    inside; else minus half the least value of a·dx² + 2·b·dx·dy + c·dy²
+    on an edge that faces the centre (at most one per axis: the one at
+    the offset nearest to 0 where the rectangle's span on that axis
+    excludes 0), a clamped one-dimensional minimum."""
+    x, y, a, b, c = (rec[..., i] for i in range(5))
+    dx_lo, dx_hi, dy_lo, dy_hi = x - x1, x - x0, y - y1, y - y0
+    zero = torch.zeros((), dtype=rec.dtype, device=rec.device)
+    ex = torch.minimum(torch.maximum(zero, dx_lo), dx_hi)
+    ey = torch.minimum(torch.maximum(zero, dy_lo), dy_hi)
+    inf = float("inf")
+    qx = torch.where(ex != 0, _edge_min(a, b, c, ex, dy_lo, dy_hi), inf)
+    qy = torch.where(ey != 0, _edge_min(c, b, a, ey, dx_lo, dx_hi), inf)
+    bound = torch.where((ex != 0) | (ey != 0),
+                        -0.5 * torch.minimum(qx, qy), 0.0)
+    mx = torch.maximum(dx_lo.abs(), dx_hi.abs())
+    my = torch.maximum(dy_lo.abs(), dy_hi.abs())
+    return bound, a * mx * mx + c * my * my + 2.0 * b.abs() * mx * my
+
+
+def warp_cull_keep(rec: torch.Tensor, x0, x1, y0, y1) -> torch.Tensor:
+    """The kernels' warp cull (`cull_keep`, csrc/alpha_terms.cuh), the same
+    f32 formula: False only where no pixel of the rectangle can pass
+    alpha >= 1/255 for the instance `rec[..., 0:6]`: where
+    `rect_power_bound`, plus CULL_REL of the terms' largest magnitude,
+    stays under `skip_threshold`. Conics that are not positive definite
+    and non-finite terms keep."""
+    bound, mag = rect_power_bound(rec, x0, x1, y0, y1)
+    a, b, c = rec[..., 2], rec[..., 3], rec[..., 4]
+    reject = ((a > 0) & (c > 0) & (a * c > b * b)
+              & (bound + CULL_REL * mag < skip_threshold(rec[..., 5])))
+    return ~reject
+
+
+def shared_power(rec: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
+    """power of the instances `rec` (N, >= 5) at the pixels xs (W,) x ys
+    (H,), as (N, H, W), from the terms that K1 computes once per column
+    ((a·dx)·dx, b·dx) and once per row ((c·dy)·dy) of a thread's pixels:
+    the plain versions' power, bit for bit."""
+    dx = rec[:, 0:1] - xs[None, :]                              # (N, W)
+    dy = rec[:, 1:2] - ys[None, :]                              # (N, H)
+    adx2 = rec[:, 2:3] * dx * dx
+    bdx = rec[:, 3:4] * dx
+    cdy2 = rec[:, 4:5] * dy * dy
+    return (-0.5 * (adx2[:, None, :] + cdy2[:, :, None])
+            - bdx[:, None, :] * dy[:, :, None])
+
+
+def _warp_counts(seen, keep_k, used, rows):
+    """Counts of one rank of a plain walk, by warp: (warp, instance) pairs
+    with a pixel that evaluates the instance (`seen` (T, 256)), those of
+    them that pass the cull (`keep_k` (T, warps)), the evaluated pairs in
+    these, and the (warp, instance) pairs with a used pixel."""
+    seen_w = by_warp(seen, rows)
+    kept = seen_w.any(dim=-1) & keep_k
+    return [seen_w.any(dim=-1).sum(), kept.sum(),
+            (seen_w & kept[..., None]).sum(),
+            by_warp(used, rows).any(dim=-1).sum()]
+
+
+WARP_COUNT_NAMES = ("warp_live", "warp_kept", "kept_evaluated",
+                    "warp_active")
 
 
 def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
@@ -66,7 +186,11 @@ def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
     If `pair_counts` is a dict, it receives the number of (pixel, instance)
     pairs these inputs need, by how far each goes: "evaluated" (the pixel
     is not done yet), "power_ok" (power <= 0), "alpha_ok" (alpha >= 1/255)
-    and "used" (the pixel composites it).
+    and "used" (the pixel composites it); and what K1's warps (8x8 blocks)
+    visit: "warp_live" ((warp, instance) pairs with a pixel that is not
+    done), "warp_kept" (those that pass `warp_cull_keep`),
+    "kept_evaluated" (the evaluated pairs in these) and "warp_active"
+    ((warp, instance) pairs with a used pixel).
     """
     device = rec.device
     num_tiles = tile_start.shape[0]
@@ -81,11 +205,16 @@ def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
     ranks = torch.arange(chunk, device=device)
     start = tile_start.to(torch.int64)[:, None]
     count = tile_count.to(torch.int64)[:, None]
-    n_pairs = torch.zeros(4, dtype=torch.int64, device=device)
+    n_pairs = torch.zeros(8, dtype=torch.int64, device=device)
+    if pair_counts is not None:
+        rects = [b[:, None, :] for b in warp_rects(num_tiles, tiles_x,
+                                                   device, FORWARD_ROWS)]
     for c0 in range(0, max_count, chunk):
         in_range = (c0 + ranks)[None, :] < count                # (T, K)
         idx = torch.where(in_range, start + c0 + ranks[None, :], 0)
         r = rec[gauss_id[idx].to(torch.int64)]                 # (T, K, 6+F)
+        if pair_counts is not None:
+            keep = warp_cull_keep(r[:, :, None, :], *rects)     # (T, K, 8)
         dx = r[:, :, 0:1] - px[:, None, :]                     # (T, K, PIX)
         dy = r[:, :, 1:2] - py[:, None, :]
         power = (-0.5 * (r[:, :, 2:3] * dx * dx + r[:, :, 4:5] * dy * dy)
@@ -104,7 +233,8 @@ def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
                 seen = in_range[:, k, None] & ~done
                 n_pairs += torch.stack([
                     seen.sum(), (seen & (power[:, k] <= 0.0)).sum(),
-                    live.sum(), used.sum()])
+                    live.sum(), used.sum(),
+                    *_warp_counts(seen, keep[:, k], used, FORWARD_ROWS)])
             w = torch.where(used, a * t, 0.0)
             acc += r[:, k, 6:, None] * w[:, None, :]
             t = torch.where(used, test_t, t)
@@ -113,8 +243,8 @@ def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
         if bool(done.all()):
             break
     if pair_counts is not None:
-        pair_counts.update(zip(("evaluated", "power_ok", "alpha_ok", "used"),
-                               n_pairs.tolist()))
+        pair_counts.update(zip(("evaluated", "power_ok", "alpha_ok", "used")
+                               + WARP_COUNT_NAMES, n_pairs.tolist()))
     return acc, t, ncon
 
 
@@ -279,9 +409,14 @@ def blend_backward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
     If `pair_counts` is a dict, it receives the number of (pixel,
     instance) pairs these inputs need, by how far each goes: "evaluated"
     (the rank is below the pixel's n_contrib), "power_ok" (power <= 0),
-    "used" (alpha >= 1/255: the pair K1 composited), and "warp_active",
-    the (32-pixel warp, instance) pairs with a used pixel, which pay the
-    atomics.
+    "used" (alpha >= 1/255: the pair K1 composited); and what K2's warps
+    (8x4 blocks) visit: "warp_live" ((warp, instance) pairs below the
+    warp's largest n_contrib), "warp_kept" (those that pass
+    `warp_cull_keep`),
+    "kept_evaluated" (the evaluated pairs in these), "warp_active" ((warp,
+    instance) pairs with a used pixel, which pay the warp sum and the
+    shared-memory adds) and "tile_active" ((tile, instance) pairs with a
+    used pixel, which pay the atomics on the output).
     """
     device = rec.device
     num_tiles = tile_start.shape[0]
@@ -297,7 +432,10 @@ def blend_backward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
     chunk = PLAIN_CHUNK
     ranks = torch.arange(chunk, device=device)
     start = tile_start.to(torch.int64)[:, None]
-    n_pairs = torch.zeros(4, dtype=torch.int64, device=device)
+    n_pairs = torch.zeros(8, dtype=torch.int64, device=device)
+    if pair_counts is not None:
+        rects = [b[:, None, :] for b in warp_rects(num_tiles, tiles_x,
+                                                   device)]
     for c0 in reversed(range(0, top, chunk)):
         rank = c0 + ranks
         in_range = rank[None, :] < max_rank[:, None]            # (T, K)
@@ -317,8 +455,10 @@ def blend_backward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
         if pair_counts is not None:
             n_pairs += torch.stack([
                 evaluated.sum(), power_ok.sum(), used.sum(),
-                used.reshape(num_tiles, chunk, PIX // WARP, WARP)
-                .any(dim=-1).sum()])
+                *_warp_counts(evaluated,
+                              warp_cull_keep(r[:, :, None, :], *rects), used,
+                              1),
+                used.any(dim=-1).sum()])
         grads = torch.zeros((num_tiles, chunk, REC), dtype=rec.dtype,
                             device=device)
         for k in reversed(range(chunk)):
@@ -349,8 +489,9 @@ def blend_backward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
             grads[:, k, :NUM_GRAD] = terms.sum(dim=-1)
         d_rec.index_add_(0, gid[in_range], grads[in_range])
     if pair_counts is not None:
-        pair_counts.update(zip(("evaluated", "power_ok", "used",
-                                "warp_active"), n_pairs.tolist()))
+        pair_counts.update(zip(("evaluated", "power_ok", "used")
+                               + WARP_COUNT_NAMES + ("tile_active",),
+                               n_pairs.tolist()))
     return d_rec
 
 
@@ -396,6 +537,10 @@ def launch_backward(rec, gauss_id, tile_start, t_final, n_contrib, dcot,
         raise ValueError("blend_backward: t_final, n_contrib must be "
                          "(T, 256) and dcot (T, 7, 256)")
     d_rec = torch.zeros_like(rec)
+    if d_rec.data_ptr() % 16:
+        raise ValueError("blend_backward: the gradient table must be "
+                         "16-byte aligned (the kernel adds rows with "
+                         "vector atomics)")
     stream = torch.cuda.current_stream(rec.device).cuda_stream
     _raise_on(_kernel("blend_backward")(
         rec.data_ptr(), gauss_id.data_ptr(), tile_start.data_ptr(),

@@ -25,6 +25,10 @@ OPTS = dict(height=48, width=40, gaussian_dim=4, rot_4d=True,
             time_duration=1.0)
 XLA_KW = dict(capacity=16384, max_per_tile=1024, chunk=32)
 BG = np.array([0.1, 0.2, 0.3], np.float32)
+# The warp of K1 that owns pixel p = y·16 + x of a tile: a thread owns two
+# pixels 4 rows apart, so warp w covers the 8x8 block at column (w % 2)·8
+# and row (w // 2)·8.
+WARP_OF = np.array([(p // 16 // 8) * 2 + (p % 16) // 8 for p in range(256)])
 
 
 def _jax_proc(scene):
@@ -138,15 +142,22 @@ def test_plain_blend_pair_counts(rng, scene_name):
 
     r = rec.numpy()
     ids = bins.gauss_id.numpy()
-    want = dict(evaluated=0, power_ok=0, alpha_ok=0, used=0)
+    want = dict(evaluated=0, power_ok=0, alpha_ok=0, used=0, warp_live=0,
+                warp_kept=0, kept_evaluated=0, warp_active=0)
+    rects = port_blend.warp_rects(opts.num_tiles, opts.tiles_x, "cpu",
+                                  port_blend.FORWARD_ROWS)
     for tile, (s, c) in enumerate(zip(bins.tile_start.numpy(),
                                       bins.tile_count.numpy())):
         ty, tx = divmod(tile, opts.tiles_x)
+        seen = np.zeros((c, 256), bool)
+        used = np.zeros((c, 256), bool)
         for py in range(ty * 16, ty * 16 + 16):
             for px in range(tx * 16, tx * 16 + 16):
+                p = (py % 16) * 16 + px % 16
                 t = np.float32(1.0)
-                for g in ids[s:s + c]:
+                for j, g in enumerate(ids[s:s + c]):
                     want["evaluated"] += 1
+                    seen[j, p] = True
                     dx, dy = r[g, 0] - px, r[g, 1] - py
                     power = (-0.5 * (r[g, 2] * dx * dx + r[g, 4] * dy * dy)
                              - r[g, 3] * dx * dy)
@@ -160,9 +171,21 @@ def test_plain_blend_pair_counts(rng, scene_name):
                     if t * (1.0 - alpha) < 1e-4:
                         break
                     want["used"] += 1
+                    used[j, p] = True
                     t = t * (1.0 - alpha)
+        # By warp: the 8x8 block of pixel p is WARP_OF[p].
+        keep = port_blend.warp_cull_keep(
+            rec[bins.gauss_id[s:s + c].long()][:, None, :],
+            *(b[tile][None, :] for b in rects)).numpy()          # (c, 4)
+        for w in range(4):
+            live = seen[:, WARP_OF == w]
+            want["warp_live"] += int(live.any(-1).sum())
+            want["warp_kept"] += int((live.any(-1) & keep[:, w]).sum())
+            want["kept_evaluated"] += int(live[keep[:, w]].sum())
+            want["warp_active"] += int(used[:, WARP_OF == w].any(-1).sum())
     assert counts == want
     assert want["used"] > 0
+    assert want["warp_active"] <= want["warp_kept"] < want["warp_live"]
 
 
 def test_wrapper_never_runs_plain_off_cpu(rng):
@@ -195,3 +218,141 @@ def test_ctiles_to_image_matches_jax(rng):
     np.testing.assert_array_equal(
         port_blend.ctiles_to_image(torch.as_tensor(x), opts).numpy(),
         np.asarray(pallas_blend._ctiles_to_image(jnp.asarray(x), bc)))
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_by_warp_is_the_kernels_thread_mapping(rows):
+    """`by_warp` and `warp_rects` against the index arithmetic of the
+    kernels: thread tid (warp tid // 32, lane tid % 32) owns the pixels
+    (x0 + lane % 8, y0 + lane // 8 + 4·o), o < rows, of its warp's block
+    at (x0, y0) = ((warp % 2)·8, (warp // 2)·4·rows): one pixel in K2, two
+    in K1."""
+    planes = torch.arange(2 * 256).reshape(2, 256)
+    got = port_blend.by_warp(planes, rows).numpy()
+    x0, x1, y0, y1 = (b.numpy() for b in
+                      port_blend.warp_rects(6, 3, "cpu", rows))
+    assert got.shape == (2, 8 // rows, 32 * rows)
+    seen = set()
+    for tid in range(256 // rows):
+        warp, lane = divmod(tid, 32)
+        for o in range(rows):
+            x = (warp % 2) * 8 + lane % 8
+            y = (warp // 2) * 4 * rows + lane // 8 + 4 * o
+            p = y * 16 + x
+            seen.add(p)
+            assert 256 + p in got[1, warp]
+            # Tile 4 of a 3-wide grid is at (16, 16).
+            assert x0[4, warp] <= 16 + x <= x1[4, warp]
+            assert y0[4, warp] <= 16 + y <= y1[4, warp]
+            if rows == port_blend.FORWARD_ROWS:
+                assert WARP_OF[p] == warp
+    assert len(seen) == 256
+    assert (x1 - x0 == 7).all() and (y1 - y0 == 4 * rows - 1).all()
+
+
+def _cull_records(rng, kind, n):
+    """(n, 6) f32 records [x, y, a, b, c, opacity] around a 48x40 image."""
+    xy = rng.uniform(-24.0, 72.0, (n, 2))
+    sx = np.exp(rng.normal(np.log(3.0), 0.8, n))
+    sy = np.exp(rng.normal(np.log(3.0), 0.8, n))
+    rho = rng.uniform(-0.6, 0.6, n)
+    opa = rng.uniform(0.01, 0.99, n)
+    if kind == "near_threshold":
+        # Opacities around the 1/255 floor: the threshold power is near 0.
+        opa = (1.0 / 255.0) * np.exp(rng.normal(0.0, 0.05, n))
+        opa[::3] = rng.uniform(1.0 / 255.0, 0.02, n)[::3]
+    if kind == "correlated":
+        # Thin, strongly tilted gaussians: the power's terms nearly cancel.
+        rho = (np.sign(rng.normal(size=n))
+               * (1.0 - 10.0 ** rng.uniform(-5, -1, n)))
+        sx, sy = sx * 6.0, sy * 6.0
+    det = (1.0 - rho ** 2) * sx ** 2 * sy ** 2
+    conic = np.stack([sy ** 2 / det, -rho * sx * sy / det, sx ** 2 / det], 1)
+    if kind == "degenerate":
+        # Conics the preprocess never makes: the cull must keep or be right.
+        conic[::4, 0] *= -1.0
+        conic[1::4, 2] = 0.0
+        conic[2::4, 1] *= 3.0                       # indefinite
+        opa[3::4] = rng.choice([0.0, 1.0, 1.5], n)[3::4]
+    return np.concatenate([xy, conic, opa[:, None]], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "near_threshold", "correlated",
+                                  "degenerate"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_warp_cull_never_rejects_a_used_pair(kind, seed):
+    """The conservative warp cull and the expf pre-test against the exact
+    test of the plain versions, on every 8x4 (K2) and 8x8 (K1) block of a
+    48x40 image
+    (partial tiles: a 3x3 grid of tiles, the last column and row past the
+    edge): wherever the exact test (power <= 0 and alpha >= 1/255, f32)
+    accepts a pixel, the pair's power is not under `skip_threshold` and
+    its warp keeps the instance."""
+    rec = torch.as_tensor(_cull_records(np.random.default_rng(seed), kind,
+                                        600))
+    opts = port_pre.RenderOptions(height=48, width=40)
+    px, py = port_blend._tile_pixel_coords(opts.num_tiles, opts.tiles_x,
+                                           "cpu")                 # (T, 256)
+    r = rec[:, None, None, :]
+    dx, dy = r[..., 0] - px[None], r[..., 1] - py[None]           # (N, T, 256)
+    power = (-0.5 * (r[..., 2] * dx * dx + r[..., 4] * dy * dy)
+             - r[..., 3] * dx * dy)
+    alpha = torch.clamp(r[..., 5] * torch.exp(power), max=0.99)
+    accept = (power <= 0.0) & (alpha >= 1.0 / 255.0)
+    assert int(accept.sum()) > 0
+    thr = port_blend.skip_threshold(rec[:, 5])[:, None, None]
+    assert not bool((accept & (power < thr)).any())
+    for rows in (1, 2):
+        rects = port_blend.warp_rects(opts.num_tiles, opts.tiles_x, "cpu",
+                                      rows)
+        keep = port_blend.warp_cull_keep(
+            rec[:, None, None, :], *(b[None] for b in rects))  # (N, T, warps)
+        accept_w = port_blend.by_warp(accept, rows).any(dim=-1)
+        assert not bool((accept_w & ~keep).any())
+        if kind == "random":
+            # Not vacuous: most (warp, instance) pairs are dropped, and of
+            # the kept ones a good share has a pixel that passes.
+            assert float(keep.float().mean()) < 0.5
+            assert int(accept_w.sum()) > 0.5 * int(keep.sum())
+
+
+def test_warp_cull_bound_is_the_largest_power(rng):
+    """The closed form behind the cull (0 if the centre is inside, else
+    the largest power on an edge that faces it) against a dense sampling
+    of the rectangle."""
+    rec = _cull_records(rng, "random", 200)
+    rec[:30, 0] = rng.uniform(8.0, 15.0, 30)         # centres in the block
+    rec[:30, 1] = rng.uniform(4.0, 7.0, 30)
+    rec = torch.as_tensor(rec)
+    x0, x1, y0, y1 = (torch.tensor(v) for v in (8.0, 15.0, 4.0, 7.0))
+    xs = torch.linspace(8.0, 15.0, 141)
+    ys = torch.linspace(4.0, 7.0, 61)
+    dense = port_blend.shared_power(rec, xs, ys).reshape(200, -1).amax(1)
+    bound, mag = port_blend.rect_power_bound(rec, x0, x1, y0, y1)
+    x, y = rec[:, 0], rec[:, 1]
+    inside = (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
+    assert bool((bound[inside] == 0).all())
+    assert bool((mag >= dense.abs()).all())
+    assert int(inside.sum()) > 0 and int((~inside).sum()) > 100
+    # The bound is never below a sampled power, and tight to the sampling.
+    assert float((dense - bound).max()) <= 1e-4 * float(bound.abs().max())
+    np.testing.assert_allclose(bound.numpy(), dense.numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["random", "correlated"])
+def test_shared_power_equals_the_plain_power_bit_for_bit(rng, kind):
+    """The power from the terms shared down a column and along a row of a
+    thread's pixels (`shared_power`; `col_terms`, `row_terms`, `power_of`
+    in csrc/alpha_terms.cuh) against the plain versions' expression."""
+    rec = torch.as_tensor(_cull_records(rng, kind, 300))
+    xs = torch.arange(16, 32, dtype=torch.float32)
+    ys = torch.arange(32, 48, dtype=torch.float32)
+    got = port_blend.shared_power(rec, xs, ys)                   # (N, H, W)
+    r = rec[:, :, None]
+    px = xs.repeat(16)[None, :]          # tile order: p = y·16 + x
+    py = ys.repeat_interleave(16)[None, :]
+    dx, dy = r[:, 0] - px, r[:, 1] - py
+    want = (-0.5 * (r[:, 2] * dx * dx + r[:, 4] * dy * dy)
+            - r[:, 3] * dx * dy)
+    assert torch.equal(got.reshape(300, 256), want)

@@ -138,7 +138,13 @@ def test_backward_pair_counts(rng):
                                     pair_counts=counts)
 
     r, ids, nc = rec.numpy(), bins.gauss_id.numpy(), ncon.numpy()
-    want = dict(evaluated=0, power_ok=0, used=0, warp_active=0)
+    # The warp of pixel p = y·16 + x, as the kernels map threads: warp w
+    # covers the 8x4 block at column (w % 2)·8 and row (w // 2)·4.
+    warp_of = np.array([(p // 16 // 4) * 2 + (p % 16) // 8
+                        for p in range(256)])
+    rects = port_blend.warp_rects(opts.num_tiles, opts.tiles_x, "cpu")
+    want = dict(evaluated=0, power_ok=0, used=0, warp_live=0, warp_kept=0,
+                kept_evaluated=0, warp_active=0, tile_active=0)
     for tile, s in enumerate(bins.tile_start.numpy()):
         ty, tx = divmod(tile, opts.tiles_x)
         top = nc[tile].max()
@@ -157,9 +163,23 @@ def test_backward_pair_counts(rng):
                 if min(r[g, 5] * np.exp(power), np.float32(0.99)) >= 1 / 255:
                     used[j, p] = True
         want["used"] += int(used.sum())
-        want["warp_active"] += int(used.reshape(top, 8, 32).any(-1).sum())
+        want["tile_active"] += int(used.any(-1).sum())
+        keep = port_blend.warp_cull_keep(
+            rec[bins.gauss_id[s:s + top].long()][:, None, :],
+            *(b[tile][None, :] for b in rects)).numpy()          # (top, 8)
+        for w in range(8):
+            mine = warp_of == w
+            # The warp walks the ranks below its own largest n_contrib.
+            live = np.arange(top) < nc[tile, mine].max()
+            below = np.arange(top)[:, None] < nc[tile, mine][None, :]
+            want["warp_live"] += int(live.sum())
+            want["warp_kept"] += int((live & keep[:, w]).sum())
+            want["kept_evaluated"] += int(below[keep[:, w]].sum())
+            want["warp_active"] += int(used[:, mine].any(-1).sum())
     assert counts == want
     assert want["used"] > 0
+    assert (want["tile_active"] <= want["warp_active"] <= want["warp_kept"]
+            < want["warp_live"])
 
 
 def test_backward_wrapper_never_runs_plain_off_cpu():

@@ -235,7 +235,11 @@ def test_infer_plain_pair_counts(rng, scene_name):
                         break
                     want["used"] += 1
                     t = t * (1.0 - alpha)
-    assert counts == want
+    # The four classes K3's bound uses; the plain forward also counts what
+    # a warp-private walk would visit (tests/test_torch_blend.py walks
+    # those), which K3, a tile-wide walk, does not use yet.
+    assert {k: counts[k] for k in want} == want
+    assert set(counts) - set(want) == set(port_blend.WARP_COUNT_NAMES)
     assert want["used"] > 0
 
 
