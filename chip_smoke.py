@@ -16,9 +16,13 @@ times them:
   2. build    nvcc of every kernel; seconds and ptxas report
   3. kernel   the forward blend kernel K1 vs its plain version on small
               scenes: random, saturated and more than 256 instances deep,
-              empty tiles, partial tiles (48x40); accum within 1e-5 abs,
+              empty tiles, partial tiles (48x40), and thin tilted
+              gaussians with opacities near 1/255 where the warp cull's
+              margins decide (cull_edges, 48x40); accum within 1e-5 abs,
               T_final within 1e-6 abs, n_contrib equal on >= 99.99% of
-              pixels. The backward blend kernel K2 vs its plain version on
+              pixels. The packed inference blend K3 vs its plain version
+              (the same bounds) and within 1.5e-2 of K1. The backward
+              blend kernel K2 vs its plain version on
               the same scenes with random image cotangents (seed 2): the
               per-gaussian gradients within the scale-normalised atol 2e-4
               (|k - p| / max(|p|.max(), 1e-3), per record column; its
@@ -61,10 +65,10 @@ times them:
   9. viewer   a ViewerServer on a free local port answers one SIBR-format
               request through Evaluator.render_arrays and K3: the bytes
               equal the render's 8-bit image
- 10. kernels  what the warp-private walks of K1 and K2 visit on these
+ 10. kernels  what the warp-private walks of K1, K2 and K3 visit on these
               inputs (the share of (warp, instance) pairs that passes the
               cull, K2's shuffles and atomics per camera, counted by the
-              plain versions; K3's as K1's cull would leave them), then one
+              plain versions), then one
               JSON line per the port's kernel table: launches on the main
               paths, error, time, plain time and the card's bound for the
               work these inputs need
@@ -112,41 +116,36 @@ from fourdgs_tpu_torch.viewer import ViewerServer  # noqa: E402
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32_OPS = 67e12        # f32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12        # HBM bytes/s
-# f32 operations of a forward blend that evaluates every (pixel, instance)
-# pair of a tile until the pixel is done, as csrc/blend_infer.cu does, by
-# how far the pair goes (the classes of blend_forward_plain's pair counts).
-# Every pair: dx, dy (2); power (9); the power test (1).
-OPS_EVALUATED = 12
-# power <= 0: CUDA's accurate expf (two range-reduction multiply-adds, one
-# ex2 and one scaling multiply: 6); opa·e, the 0.99 clamp, the alpha test.
-OPS_POWER_OK = 9
-# alpha >= 1/255: 1 − alpha, T·(1 − alpha), the 1e-4 test.
-OPS_ALPHA_OK = 3
-# Used: w = alpha·T (1); 6 feature multiply-adds (12).
-OPS_USED = 13
-# csrc/blend_infer.cu composites 4 features: w (1) and 4 multiply-adds (8).
-OPS_INFER_USED = 9
-# K1 and K2 (csrc/blend_forward.cu, blend_backward.cu) cull by warp, skip
-# expf under a per-instance threshold and, in K1, share the power's column
-# terms between a thread's two pixels. The rule of their counts: a pair is
-# charged what the cheapest scheme now known computes for it, and a test
-# that only skips work is charged as if its margin were zero, so that no
-# count exceeds what the kernels do.
+# f32 operations of the blend kernels per (pixel, instance) pair, by how
+# far the pair goes (the classes of the plain versions' pair counts). All
+# three kernels (csrc/blend_forward.cu, blend_backward.cu, blend_infer.cu)
+# cull by warp, skip expf under a per-instance threshold and, in K1 and
+# K3, share the power's column terms between a thread's two pixels. The
+# rule of their counts: a pair is charged what the cheapest scheme now
+# known computes for it, and a test that only skips work is charged as if
+# its margin were zero, so that no count exceeds what the kernels do.
 # Per (warp, instance) pair that a warp tests, `cull_keep` on one lane: the
 # four offsets (4), the two nearest (4), two edge minima (12 each), their
 # choice and the bound (4), the largest offsets (2) and magnitude (9), the
 # conic's sign and determinant (5), margin and test (3).
 OPS_CULL = 55
 # Per evaluated pair of a (warp, instance) pair that passes the cull, in
-# K1: the column terms, shared by two pixels (4 / 2), the row terms (3),
-# power (4), the power test and the threshold test (2).
+# K1 and K3: the column terms, shared by two pixels (4 / 2), the row terms
+# (3), power (4), the power test and the threshold test (2).
 OPS_KEPT_FORWARD = 11
 # The same in K2, one pixel per thread: column (4), row (3), power (4),
 # the two tests (2).
 OPS_KEPT_BACKWARD = 13
 # alpha >= 1/255 (the only pairs an exact threshold test lets through):
-# expf (6), opa·e, the clamp, the alpha test (3).
+# expf (two range-reduction multiply-adds, one ex2 and one scaling
+# multiply: 6), opa·e, the clamp, the alpha test (3).
 OPS_EXP = 9
+# Then, in K1 and K3: 1 − alpha, T·(1 − alpha), the 1e-4 test.
+OPS_ALPHA_OK = 3
+# K1's used pair: w = alpha·T (1); 6 feature multiply-adds (12).
+OPS_USED = 13
+# K3's used pair: w (1) and 4 feature multiply-adds (8).
+OPS_INFER_USED = 9
 # K2's used pair after that: 1 − alpha, T / (1 − alpha), w; gdot (6 mul,
 # 5 add); dalpha (4); sigma (2); dpower (1); the x, y sums (2 × 3) and
 # their gradients (2); the conic gradients (3 + 2 + 3); dopa (1); 4
@@ -399,14 +398,29 @@ def kernel_cases(device):
 
     cases["partial_tiles_48x40"] = (small_scene(rng, 120), 48, 40)
 
+    # Thin gaussians tilted by their random rotations, three in four with
+    # an opacity within a few percent of 1/255 (t at the camera's time, so
+    # that the temporal marginal is 1): the threshold power is near 0 and
+    # the pairs are those where the margins of the warp cull and of the expf
+    # test decide, on f32 records (K1, K2) and bf16-rounded ones (K3).
+    p = 400
+    s = small_scene(rng, p)
+    s["scales"] *= 0.5
+    s["scales"][:, 0] *= 0.05
+    s["t"][:] = 0.5
+    opa = (1.0 / 255.0) * np.exp(rng.normal(0.0, 0.02, p))
+    opa[::4] = rng.uniform(0.3, 0.95, p)[::4]
+    s["opacity"] = opa.astype(np.float32)
+    cases["cull_edges_48x40"] = (s, 48, 40)
+
     for name, (scene, h, w) in cases.items():
         opts = pre.RenderOptions(height=h, width=w)
         act = {k: torch.as_tensor(v, device=device) for k, v in scene.items()}
         proc, bins, rec = blend_inputs(
             **act, camera=camera(w, h, 0.5, device), opts=opts)
         report, k, _, _ = compare(rec, bins, opts)
-        k3_report, k3, _ = compare_infer(blend.pack_records_infer(proc),
-                                         bins, opts)
+        k3_report, k3, k3_pairs = compare_infer(
+            blend.pack_records_infer(proc), bins, opts)
         k3_diff = infer_vs_exact(k3, k)
         dcot = random_cotangents(cot_rng, k[1],
                                  torch.full((3,), 0.3, device=device), opts)
@@ -421,7 +435,7 @@ def kernel_cases(device):
                       k2_launches=blend.blend_backward.launches,
                       k3_accum_err=k3_report["accum_err"],
                       k3_t_final_err=k3_report["t_final_err"],
-                      k3_vs_k1=k3_diff,
+                      k3_vs_k1=k3_diff, k3_cull=cull_report(k3_pairs),
                       k3_launches=blend.blend_infer.launches)
         emit({"phase": "kernel_vs_plain", **report})
         check_report(report, name)
@@ -434,6 +448,10 @@ def kernel_cases(device):
             check(float(k[1].min()) < 1e-3, "saturated case not saturated")
         if name.startswith("empty"):
             check(report["empty_tiles"] > 0, "no empty tile")
+        if name.startswith("cull_edges"):
+            check(0 < k3_pairs["warp_kept"] < k3_pairs["warp_live"]
+                  and k3_pairs["used"] > 0, f"{name}: the cull decides "
+                  f"nothing here ({cull_report(k3_pairs)})")
     check(blend.blend_forward.launches >= len(cases), "K1 never launched")
     check(blend.blend_backward.launches >= len(cases), "K2 never launched")
     check(blend.blend_infer.launches >= len(cases), "K3 never launched")
@@ -459,31 +477,33 @@ def forward_bytes(bins, num_gaussians, rec_bytes, out_planes):
             + tiles * blend.PIX * out_planes * 4)
 
 
+def walk_ops(pairs, ops_used):
+    """f32 operations of K1's and K3's warp-private walk on these inputs
+    (the plain version's counts): the cull of every (warp, instance) pair
+    a warp tests, the falloff of the evaluated pairs in those that pass,
+    expf and the transmittance test where alpha >= 1/255, and
+    `ops_used` for each used pair."""
+    return (pairs["warp_live"] * OPS_CULL
+            + pairs["kept_evaluated"] * OPS_KEPT_FORWARD
+            + pairs["alpha_ok"] * (OPS_EXP + OPS_ALPHA_OK)
+            + pairs["used"] * ops_used)
+
+
 def forward_bound_ms(pairs, bins, num_gaussians):
-    """Least time for K1 on these inputs: the cull of every (warp,
-    instance) pair a warp tests, the falloff of the evaluated pairs in
-    those that pass, expf and the transmittance test where alpha >= 1/255
-    and the compositing of the used pairs (the plain version's counts),
-    against the f32 peak; or the bytes (48-byte records; 6 features,
-    T_final and n_contrib out), whichever is larger."""
-    ops = (pairs["warp_live"] * OPS_CULL
-           + pairs["kept_evaluated"] * OPS_KEPT_FORWARD
-           + pairs["alpha_ok"] * (OPS_EXP + OPS_ALPHA_OK)
-           + pairs["used"] * OPS_USED)
-    return bound_ms(ops, forward_bytes(bins, num_gaussians, blend.REC * 4, 8))
+    """Least time for K1 on these inputs: its walk's operations against
+    the f32 peak, or the bytes (48-byte records; 6 features, T_final and
+    n_contrib out), whichever is larger."""
+    return bound_ms(walk_ops(pairs, OPS_USED),
+                    forward_bytes(bins, num_gaussians, blend.REC * 4, 8))
 
 
 def infer_bound_ms(pairs, bins, num_gaussians):
-    """Least time for K3 on these inputs, which evaluates every pair of a
-    tile: the operations of the pairs by class, or the bytes (32-byte
+    """Least time for K3 on these inputs: its walk's operations (K1's, with
+    4 features composited) against the f32 peak, or the bytes (32-byte
     records; 4 features and T_final out), whichever is larger."""
-    ops = (pairs["evaluated"] * OPS_EVALUATED
-           + pairs["power_ok"] * OPS_POWER_OK
-           + pairs["alpha_ok"] * OPS_ALPHA_OK
-           + pairs["used"] * OPS_INFER_USED)
-    return bound_ms(ops, forward_bytes(bins, num_gaussians,
-                                       blend.REC_INFER * 4,
-                                       blend.NUM_FEAT_INFER + 1))
+    return bound_ms(walk_ops(pairs, OPS_INFER_USED),
+                    forward_bytes(bins, num_gaussians, blend.REC_INFER * 4,
+                                  blend.NUM_FEAT_INFER + 1))
 
 
 def backward_bound_ms(pairs, args):
@@ -1062,9 +1082,9 @@ def eval_phase(device, p=100_000, hw=800):
     return evaluator, row, launches["k3"]
 
 
-def eval_env_phase(device, p=300_000, h=1014, w=1352, res=500):
-    """One view of the DyNeRF-shape cloud through Evaluator with an
-    environment map in the checkpoint and the packed blend."""
+def env_evaluator(device, p, h, w, res):
+    """An Evaluator of the DyNeRF-shape cloud with an environment map in
+    its checkpoint, set to the packed blend, and its one camera."""
     root = os.path.join(ROOT, "build", f"eval_{w}x{h}_env")
     shutil.rmtree(root, ignore_errors=True)
     scene = bench_scene(p, seed=0, scale_mu=-4.9)
@@ -1092,6 +1112,13 @@ def eval_env_phase(device, p=300_000, h=1014, w=1352, res=500):
     check(evaluator.env is not None
           and tuple(evaluator.env.texture.shape) == (res, res, 3),
           "eval_env: the checkpoint's environment map was not loaded")
+    return evaluator, cam
+
+
+def eval_env_phase(device, p=300_000, h=1014, w=1352, res=500):
+    """One view of the DyNeRF-shape cloud through Evaluator with an
+    environment map in the checkpoint and the packed blend."""
+    evaluator, cam = env_evaluator(device, p, h, w, res)
     evaluator.render_view(cam)                           # warm-up
     torch.cuda.synchronize()
 
@@ -1257,7 +1284,7 @@ def main() -> int:
                             for r in rows],
           "blend_backward": [dict(camera=r["camera"], **r["cull"],
                                   **r["traffic"]) for r in k2_rows],
-          "blend_infer_under_k1_cull": k3_row_800["cull"]})
+          "blend_infer": k3_row_800["cull"]})
     emit({"kernels": [{
         "name": "blend_forward",
         "route": "cuda",

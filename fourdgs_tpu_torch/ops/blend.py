@@ -17,12 +17,12 @@ layout. K3 reads a packed (P, 8) int32 table instead
 (`pack_records_infer`): xy and conic as f32 bits, opacity, rgb and depth
 rounded to bf16 pairs. The JAX package's `blend` is here `Blend.apply`.
 
-K1 and K2 give each warp a block of a tile's pixels (K2 8x4, one pixel per
-thread; K1 8x8, two per thread) and let it skip the instances that cannot
-reach alpha >= 1/255 anywhere in that block. The test is `warp_cull_keep`,
-written here once more in PyTorch (the kernels' is `cull_keep` in
-`csrc/alpha_terms.cuh`); the plain versions use it only to count, under
-`pair_counts`, what the kernels' walks visit.
+The three kernels give each warp a block of a tile's pixels (K2 8x4, one
+pixel per thread; K1 and K3 8x8, two per thread) and let it skip the
+instances that cannot reach alpha >= 1/255 anywhere in that block. The
+test is `warp_cull_keep`, written here once more in PyTorch (the kernels'
+is `cull_keep` in `csrc/alpha_terms.cuh`); the plain versions use it only
+to count, under `pair_counts`, what the kernels' walks visit.
 """
 
 from __future__ import annotations
@@ -186,11 +186,11 @@ def blend_forward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
     If `pair_counts` is a dict, it receives the number of (pixel, instance)
     pairs these inputs need, by how far each goes: "evaluated" (the pixel
     is not done yet), "power_ok" (power <= 0), "alpha_ok" (alpha >= 1/255)
-    and "used" (the pixel composites it); and what K1's warps (8x8 blocks)
-    visit: "warp_live" ((warp, instance) pairs with a pixel that is not
-    done), "warp_kept" (those that pass `warp_cull_keep`),
-    "kept_evaluated" (the evaluated pairs in these) and "warp_active"
-    ((warp, instance) pairs with a used pixel).
+    and "used" (the pixel composites it); and what the warps (8x8 blocks)
+    of K1, or of K3 on the unpacked table, visit: "warp_live" ((warp,
+    instance) pairs with a pixel that is not done), "warp_kept" (those
+    that pass `warp_cull_keep`), "kept_evaluated" (the evaluated pairs in
+    these) and "warp_active" ((warp, instance) pairs with a used pixel).
     """
     device = rec.device
     num_tiles = tile_start.shape[0]

@@ -2,27 +2,33 @@
 """Time versions of the port's blend kernels in turns, on one card in one
 process, at the shapes of chip_smoke.py's main paths.
 
-    python3 scripts/torch_kernel_turns.py FORWARD[,FORWARD...] BACKWARD[,...]
+    python3 scripts/torch_kernel_turns.py FORWARD[,...] BACKWARD[,...] \\
+        [INFER[,...]]
 
 Each name is a source `fourdgs_tpu_torch/csrc/<name>.cu` that exports
-`blend_forward_launch` (first list) or `blend_backward_launch` (second
-list) with the committed kernels' arguments; either list may be empty
-(""). To compare a kernel with an earlier commit's, put that commit's
-source beside the new one under another name and leave it uncommitted:
+`blend_forward_launch` (first list), `blend_backward_launch` (second
+list) or `blend_infer_launch` (third list) with the committed kernels'
+arguments; any list may be empty (""). To compare a kernel with an
+earlier commit's, put that commit's source beside the new one under
+another name and leave it uncommitted:
 
-    git show <commit>:fourdgs_tpu_torch/csrc/blend_forward.cu \\
-        > fourdgs_tpu_torch/csrc/blend_forward_old.cu
-    python3 scripts/torch_kernel_turns.py blend_forward_old,blend_forward \\
-        blend_backward_old,blend_backward
+    git show <commit>:fourdgs_tpu_torch/csrc/blend_infer.cu \\
+        > fourdgs_tpu_torch/csrc/blend_infer_old.cu
+    python3 scripts/torch_kernel_turns.py "" "" blend_infer_old,blend_infer
 
 Every source is built with `-fmad=false`, as the committed kernels are,
 and its registers, shared memory and spills are printed (ptxas). The
 forward kernels run on the four 800x800 requests of the 100k cloud and on
 the 1352x1014 view of the 300k cloud; the backward kernels on the inputs of
 both cameras of the first lego training step (captured through
-`blend_backward.observer`). Each version is first held to the plain
-version (forward: largest differences of accum and T_final and the share
-of equal n_contrib; backward: the scale-normalised gradient error), then
+`blend_backward.observer`); the packed inference kernels on chip_smoke's
+two evaluation views, the first 800x800 test view of the checkpoint it
+writes to disk and the 1352x1014 view of the 300k cloud with an
+environment map. Each version is first held to the plain version
+(forward: largest differences of accum and T_final and the share of
+equal n_contrib; backward: the scale-normalised gradient error; packed
+inference: largest differences of accum and T_final, 0.0 when it is
+bit-exact), then
 all are timed in the order given and once more in reverse (old, new, new,
 old), 20 launches between CUDA events after one warm-up launch. One JSON
 line per view and per camera; times in ms, in the order measured.
@@ -31,7 +37,6 @@ line per view and per camera; times in ms, in the order measured.
 from __future__ import annotations
 
 import ctypes
-import json
 import os
 import sys
 
@@ -44,7 +49,9 @@ if ROOT not in sys.path:
 
 import chip_smoke as cs  # noqa: E402
 from fourdgs_tpu_torch import cuda_build  # noqa: E402
+from fourdgs_tpu_torch.config import load_config  # noqa: E402
 from fourdgs_tpu_torch.engine import step as train  # noqa: E402
+from fourdgs_tpu_torch.engine.evaluator import Evaluator  # noqa: E402
 from fourdgs_tpu_torch.models import gaussians  # noqa: E402
 from fourdgs_tpu_torch.ops import blend  # noqa: E402
 from fourdgs_tpu_torch.ops import preprocess as pre  # noqa: E402
@@ -97,6 +104,26 @@ def backward_version(name):
     return run
 
 
+def infer_version(name):
+    """`launch_infer` of ops/blend.py for the library `name`."""
+    fn = cuda_build.load(name).blend_infer_launch
+    fn.argtypes = [_VOID] * 4 + [_INT] * 2 + [_VOID] * 3
+    fn.restype = _INT
+
+    def run(packed, gauss_id, tile_start, tile_count, tiles_x):
+        tiles = tile_start.shape[0]
+        accum = torch.empty((tiles, blend.NUM_FEAT_INFER, blend.PIX),
+                            device=packed.device)
+        t_final = torch.empty((tiles, blend.PIX), device=packed.device)
+        err = fn(packed.data_ptr(), gauss_id.data_ptr(),
+                 tile_start.data_ptr(), tile_count.data_ptr(), tiles,
+                 tiles_x, accum.data_ptr(), t_final.data_ptr(), _stream())
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+        return accum, t_final
+    return run
+
+
 def forward_views(device):
     """(label, K1's arguments) of chip_smoke's served requests."""
     views = []
@@ -139,6 +166,22 @@ def backward_cameras(device, p=100_000, hw=800):
     return captured
 
 
+def infer_views(device):
+    """(label, K3's arguments) of chip_smoke's evaluation views."""
+    root = os.path.join(ROOT, "build", "eval_800x800")
+    cfg_path = cs.write_eval_scene(root, 100_000, 800, device)
+    evaluator = Evaluator(load_config(cfg_path), device=device, verbose=False)
+    evaluator.load(os.path.join(root, "model", "chkpnt30000.pkl"))
+    views = [("800x800 view 0", evaluator, evaluator.scene.test_cameras[0]),
+             ("1352x1014 env", *cs.env_evaluator(device, 300_000, 1014,
+                                                  1352, 500))]
+    out = []
+    for label, ev, cam in views:
+        packed, bins, _ = cs.infer_inputs(ev, cam)
+        out.append((label, cs.kernel_args(packed, bins, ev.opts)))
+    return out
+
+
 def in_turns(versions, args):
     """{name: [ms, ms]}: every version timed in the order given, then in
     reverse."""
@@ -151,16 +194,17 @@ def in_turns(versions, args):
 
 
 def main(argv) -> int:
-    if len(argv) != 2:
+    if len(argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("torch_kernel_turns: no CUDA device", file=sys.stderr)
         return 1
-    forward, backward = ([n for n in arg.split(",") if n] for arg in argv)
+    forward, backward, infer = ([n for n in arg.split(",") if n]
+                                for arg in (*argv, "")[:3])
     device = torch.device("cuda:0")
     print(cs.card_line(), flush=True)
-    for name in forward + backward:
+    for name in forward + backward + infer:
         cuda_build.KERNEL_FLAGS[name] = ("-fmad=false",)
         build = cuda_build.build(name)
         cs.emit(dict(build=name, nvcc_seconds=build.seconds, ptxas=[
@@ -184,6 +228,19 @@ def main(argv) -> int:
             row = dict(camera=cam)
             for name, run in versions.items():
                 row[name] = dict(grad_err=cs.grad_error(run(*args), plain))
+            torch.cuda.synchronize()
+            row["ms"] = in_turns(versions, args)
+            cs.emit(row)
+    if infer:
+        versions = {name: infer_version(name) for name in infer}
+        for label, args in infer_views(device):
+            plain = blend.blend_infer_plain(*args)
+            row = dict(view=label, instances=int(args[1].numel()))
+            for name, run in versions.items():
+                k = run(*args)
+                row[name] = dict(
+                    accum_err=float((k[0] - plain[0]).abs().max()),
+                    t_final_err=float((k[1] - plain[1]).abs().max()))
             torch.cuda.synchronize()
             row["ms"] = in_turns(versions, args)
             cs.emit(row)

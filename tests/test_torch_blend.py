@@ -18,17 +18,15 @@ from fourdgs_tpu_torch.ops import binning as port_binning
 from fourdgs_tpu_torch.ops import blend as port_blend
 from fourdgs_tpu_torch.ops import preprocess as port_pre
 
-from torch_helpers import corner_scene, saturated_scene, to_torch
+from torch_helpers import (WARP_OF, check_cull_against_exact_test,
+                           corner_scene, cull_records, saturated_scene,
+                           to_torch, walk_pair_counts)
 from utils import look_at_camera, random_scene
 
 OPTS = dict(height=48, width=40, gaussian_dim=4, rot_4d=True,
             time_duration=1.0)
 XLA_KW = dict(capacity=16384, max_per_tile=1024, chunk=32)
 BG = np.array([0.1, 0.2, 0.3], np.float32)
-# The warp of K1 that owns pixel p = y·16 + x of a tile: a thread owns two
-# pixels 4 rows apart, so warp w covers the 8x8 block at column (w % 2)·8
-# and row (w // 2)·8.
-WARP_OF = np.array([(p // 16 // 8) * 2 + (p % 16) // 8 for p in range(256)])
 
 
 def _jax_proc(scene):
@@ -140,49 +138,7 @@ def test_plain_blend_pair_counts(rng, scene_name):
                                    bins.tile_count, opts.tiles_x,
                                    pair_counts=counts)
 
-    r = rec.numpy()
-    ids = bins.gauss_id.numpy()
-    want = dict(evaluated=0, power_ok=0, alpha_ok=0, used=0, warp_live=0,
-                warp_kept=0, kept_evaluated=0, warp_active=0)
-    rects = port_blend.warp_rects(opts.num_tiles, opts.tiles_x, "cpu",
-                                  port_blend.FORWARD_ROWS)
-    for tile, (s, c) in enumerate(zip(bins.tile_start.numpy(),
-                                      bins.tile_count.numpy())):
-        ty, tx = divmod(tile, opts.tiles_x)
-        seen = np.zeros((c, 256), bool)
-        used = np.zeros((c, 256), bool)
-        for py in range(ty * 16, ty * 16 + 16):
-            for px in range(tx * 16, tx * 16 + 16):
-                p = (py % 16) * 16 + px % 16
-                t = np.float32(1.0)
-                for j, g in enumerate(ids[s:s + c]):
-                    want["evaluated"] += 1
-                    seen[j, p] = True
-                    dx, dy = r[g, 0] - px, r[g, 1] - py
-                    power = (-0.5 * (r[g, 2] * dx * dx + r[g, 4] * dy * dy)
-                             - r[g, 3] * dx * dy)
-                    if power > 0.0:
-                        continue
-                    want["power_ok"] += 1
-                    alpha = min(r[g, 5] * np.exp(power), np.float32(0.99))
-                    if alpha < 1.0 / 255.0:
-                        continue
-                    want["alpha_ok"] += 1
-                    if t * (1.0 - alpha) < 1e-4:
-                        break
-                    want["used"] += 1
-                    used[j, p] = True
-                    t = t * (1.0 - alpha)
-        # By warp: the 8x8 block of pixel p is WARP_OF[p].
-        keep = port_blend.warp_cull_keep(
-            rec[bins.gauss_id[s:s + c].long()][:, None, :],
-            *(b[tile][None, :] for b in rects)).numpy()          # (c, 4)
-        for w in range(4):
-            live = seen[:, WARP_OF == w]
-            want["warp_live"] += int(live.any(-1).sum())
-            want["warp_kept"] += int((live.any(-1) & keep[:, w]).sum())
-            want["kept_evaluated"] += int(live[keep[:, w]].sum())
-            want["warp_active"] += int(used[:, WARP_OF == w].any(-1).sum())
+    want = walk_pair_counts(rec, bins, opts)
     assert counts == want
     assert want["used"] > 0
     assert want["warp_active"] <= want["warp_kept"] < want["warp_live"]
@@ -250,77 +206,26 @@ def test_by_warp_is_the_kernels_thread_mapping(rows):
     assert (x1 - x0 == 7).all() and (y1 - y0 == 4 * rows - 1).all()
 
 
-def _cull_records(rng, kind, n):
-    """(n, 6) f32 records [x, y, a, b, c, opacity] around a 48x40 image."""
-    xy = rng.uniform(-24.0, 72.0, (n, 2))
-    sx = np.exp(rng.normal(np.log(3.0), 0.8, n))
-    sy = np.exp(rng.normal(np.log(3.0), 0.8, n))
-    rho = rng.uniform(-0.6, 0.6, n)
-    opa = rng.uniform(0.01, 0.99, n)
-    if kind == "near_threshold":
-        # Opacities around the 1/255 floor: the threshold power is near 0.
-        opa = (1.0 / 255.0) * np.exp(rng.normal(0.0, 0.05, n))
-        opa[::3] = rng.uniform(1.0 / 255.0, 0.02, n)[::3]
-    if kind == "correlated":
-        # Thin, strongly tilted gaussians: the power's terms nearly cancel.
-        rho = (np.sign(rng.normal(size=n))
-               * (1.0 - 10.0 ** rng.uniform(-5, -1, n)))
-        sx, sy = sx * 6.0, sy * 6.0
-    det = (1.0 - rho ** 2) * sx ** 2 * sy ** 2
-    conic = np.stack([sy ** 2 / det, -rho * sx * sy / det, sx ** 2 / det], 1)
-    if kind == "degenerate":
-        # Conics the preprocess never makes: the cull must keep or be right.
-        conic[::4, 0] *= -1.0
-        conic[1::4, 2] = 0.0
-        conic[2::4, 1] *= 3.0                       # indefinite
-        opa[3::4] = rng.choice([0.0, 1.0, 1.5], n)[3::4]
-    return np.concatenate([xy, conic, opa[:, None]], 1).astype(np.float32)
-
-
 @pytest.mark.parametrize("kind", ["random", "near_threshold", "correlated",
                                   "degenerate"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_warp_cull_never_rejects_a_used_pair(kind, seed):
     """The conservative warp cull and the expf pre-test against the exact
-    test of the plain versions, on every 8x4 (K2) and 8x8 (K1) block of a
-    48x40 image
-    (partial tiles: a 3x3 grid of tiles, the last column and row past the
-    edge): wherever the exact test (power <= 0 and alpha >= 1/255, f32)
+    test of the plain versions on f32 records, on every 8x4 (K2) and 8x8
+    (K1) block of a 48x40 image with partial tiles: wherever the exact test
     accepts a pixel, the pair's power is not under `skip_threshold` and
-    its warp keeps the instance."""
-    rec = torch.as_tensor(_cull_records(np.random.default_rng(seed), kind,
-                                        600))
-    opts = port_pre.RenderOptions(height=48, width=40)
-    px, py = port_blend._tile_pixel_coords(opts.num_tiles, opts.tiles_x,
-                                           "cpu")                 # (T, 256)
-    r = rec[:, None, None, :]
-    dx, dy = r[..., 0] - px[None], r[..., 1] - py[None]           # (N, T, 256)
-    power = (-0.5 * (r[..., 2] * dx * dx + r[..., 4] * dy * dy)
-             - r[..., 3] * dx * dy)
-    alpha = torch.clamp(r[..., 5] * torch.exp(power), max=0.99)
-    accept = (power <= 0.0) & (alpha >= 1.0 / 255.0)
-    assert int(accept.sum()) > 0
-    thr = port_blend.skip_threshold(rec[:, 5])[:, None, None]
-    assert not bool((accept & (power < thr)).any())
-    for rows in (1, 2):
-        rects = port_blend.warp_rects(opts.num_tiles, opts.tiles_x, "cpu",
-                                      rows)
-        keep = port_blend.warp_cull_keep(
-            rec[:, None, None, :], *(b[None] for b in rects))  # (N, T, warps)
-        accept_w = port_blend.by_warp(accept, rows).any(dim=-1)
-        assert not bool((accept_w & ~keep).any())
-        if kind == "random":
-            # Not vacuous: most (warp, instance) pairs are dropped, and of
-            # the kept ones a good share has a pixel that passes.
-            assert float(keep.float().mean()) < 0.5
-            assert int(accept_w.sum()) > 0.5 * int(keep.sum())
+    its warp keeps the instance (`check_cull_against_exact_test`); on the
+    random kind the cull is not vacuous."""
+    rec = torch.as_tensor(cull_records(np.random.default_rng(seed), kind,
+                                       600))
+    check_cull_against_exact_test(rec, (1, 2), nonvacuous=kind == "random")
 
 
 def test_warp_cull_bound_is_the_largest_power(rng):
     """The closed form behind the cull (0 if the centre is inside, else
     the largest power on an edge that faces it) against a dense sampling
     of the rectangle."""
-    rec = _cull_records(rng, "random", 200)
+    rec = cull_records(rng, "random", 200)
     rec[:30, 0] = rng.uniform(8.0, 15.0, 30)         # centres in the block
     rec[:30, 1] = rng.uniform(4.0, 7.0, 30)
     rec = torch.as_tensor(rec)
@@ -345,7 +250,7 @@ def test_shared_power_equals_the_plain_power_bit_for_bit(rng, kind):
     """The power from the terms shared down a column and along a row of a
     thread's pixels (`shared_power`; `col_terms`, `row_terms`, `power_of`
     in csrc/alpha_terms.cuh) against the plain versions' expression."""
-    rec = torch.as_tensor(_cull_records(rng, kind, 300))
+    rec = torch.as_tensor(cull_records(rng, kind, 300))
     xs = torch.arange(16, 32, dtype=torch.float32)
     ys = torch.arange(32, 48, dtype=torch.float32)
     got = port_blend.shared_power(rec, xs, ys)                   # (N, H, W)

@@ -20,7 +20,9 @@ from fourdgs_tpu_torch.ops import blend as port_blend
 from fourdgs_tpu_torch.ops import preprocess as port_pre
 from fourdgs_tpu_torch.render import render
 
-from torch_helpers import corner_scene, port_camera, saturated_scene, to_torch
+from torch_helpers import (check_cull_against_exact_test, corner_scene,
+                           cull_records, port_camera, saturated_scene,
+                           to_torch, walk_pair_counts)
 from utils import look_at_camera, random_scene
 
 OPTS = dict(height=48, width=40, gaussian_dim=4, rot_4d=True,
@@ -202,7 +204,9 @@ def test_render_infer_carries_no_graph(rng):
 @pytest.mark.parametrize("scene_name", ["partial_tiles", "saturated"])
 def test_infer_plain_pair_counts(rng, scene_name):
     """`blend_infer_plain`'s pair counts against a pixel-by-pixel walk in
-    numpy over the unpacked (rounded) records. Tolerance: none."""
+    numpy over the unpacked (rounded) records, by pair and by K3's 8x8
+    warp rectangle: what its walk culls, evaluates and uses. Tolerance:
+    none."""
     _, jproc = _jax_proc(SCENES[scene_name](rng))
     opts, proc, bins = _port_inputs(jproc)
     packed = port_blend.pack_records_infer(proc)
@@ -210,37 +214,42 @@ def test_infer_plain_pair_counts(rng, scene_name):
     port_blend.blend_infer_plain(packed, bins.gauss_id, bins.tile_start,
                                  bins.tile_count, opts.tiles_x,
                                  pair_counts=counts)
-    r = port_blend.unpack_records_infer(packed).numpy()
-    ids = bins.gauss_id.numpy()
-    want = dict(evaluated=0, power_ok=0, alpha_ok=0, used=0)
-    for tile, (s, c) in enumerate(zip(bins.tile_start.numpy(),
-                                      bins.tile_count.numpy())):
-        ty, tx = divmod(tile, opts.tiles_x)
-        for py in range(ty * 16, ty * 16 + 16):
-            for px in range(tx * 16, tx * 16 + 16):
-                t = np.float32(1.0)
-                for g in ids[s:s + c]:
-                    want["evaluated"] += 1
-                    dx, dy = r[g, 0] - px, r[g, 1] - py
-                    power = (-0.5 * (r[g, 2] * dx * dx + r[g, 4] * dy * dy)
-                             - r[g, 3] * dx * dy)
-                    if power > 0.0:
-                        continue
-                    want["power_ok"] += 1
-                    alpha = min(r[g, 5] * np.exp(power), np.float32(0.99))
-                    if alpha < 1.0 / 255.0:
-                        continue
-                    want["alpha_ok"] += 1
-                    if t * (1.0 - alpha) < 1e-4:
-                        break
-                    want["used"] += 1
-                    t = t * (1.0 - alpha)
-    # The four classes K3's bound uses; the plain forward also counts what
-    # a warp-private walk would visit (tests/test_torch_blend.py walks
-    # those), which K3, a tile-wide walk, does not use yet.
-    assert {k: counts[k] for k in want} == want
-    assert set(counts) - set(want) == set(port_blend.WARP_COUNT_NAMES)
+    want = walk_pair_counts(port_blend.unpack_records_infer(packed), bins,
+                            opts)
+    assert counts == want
     assert want["used"] > 0
+    assert want["warp_active"] <= want["warp_kept"] < want["warp_live"]
+
+
+@pytest.mark.parametrize("kind", ["random", "near_threshold", "correlated",
+                                  "degenerate"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_warp_cull_never_rejects_a_used_pair_on_packed_records(kind, seed):
+    """K3's cull and expf pre-test on the records it decodes: the cull
+    tests' records (random, opacities near 1/255, thin correlated conics,
+    degenerate conics) packed into the (P, 8) table (`_pack2`: opacity and
+    the features to bf16) and unpacked as the kernel decodes them. On every
+    8x8 warp rectangle of a 48x40 image with partial tiles, wherever the
+    exact test on the decoded record accepts a pixel, `skip_threshold` of
+    the decoded opacity does not skip it and `warp_cull_keep` keeps it;
+    on the random kind the cull is not vacuous."""
+    rng = np.random.default_rng(seed)
+    rec = torch.as_tensor(cull_records(rng, kind, 600))
+    feat = torch.as_tensor(rng.random((600, 4)).astype(np.float32))
+    packed = torch.cat([
+        rec[:, 0:5].contiguous().view(torch.int32),
+        torch.stack([port_blend._pack2(rec[:, 5], feat[:, 0]),
+                     port_blend._pack2(feat[:, 1], feat[:, 2]),
+                     port_blend._pack2(feat[:, 3], torch.zeros(600))], 1)], 1)
+    decoded = port_blend.unpack_records_infer(packed)
+    assert torch.equal(decoded[:, 0:5], rec[:, 0:5])
+    np.testing.assert_array_equal(decoded[:, 5].numpy(),
+                                  _bf16(rec[:, 5].numpy()))
+    # The rounding moves most opacities (the degenerate kind sets a
+    # quarter to 0, 1 or 1.5, which bf16 holds), and so their thresholds.
+    assert float((decoded[:, 5] != rec[:, 5]).float().mean()) > 0.7
+    check_cull_against_exact_test(decoded, (port_blend.FORWARD_ROWS,),
+                                  nonvacuous=kind == "random")
 
 
 def test_infer_wrapper_never_runs_plain_off_cpu():
