@@ -9,8 +9,8 @@ It builds every CUDA kernel of fourdgs_tpu_torch/csrc/ with nvcc (into
 build/kernels/, one nvcc per source, all started together), holds each
 kernel against its plain PyTorch version on the card, then serves renders
 of the full-width model, takes training steps on it and evaluates a
-checkpoint of it from files on disk through the port's entry points, and
-times them:
+checkpoint of it from files on disk and trains the lego config end to end
+through the port's entry points, and times them:
 
   1. device   the card's name and power limit (nvidia-smi); no CUDA → exit 1
   2. build    nvcc of every kernel; seconds and ptxas report
@@ -65,7 +65,27 @@ times them:
   9. viewer   a ViewerServer on a free local port answers one SIBR-format
               request through Evaluator.render_arrays and K3: the bytes
               equal the render's 8-bit image
- 10. kernels  what the warp-private walks of K1, K2 and K3 visit on these
+ 10. train_lego the lego config (configs/dnerf/lego.yaml, resolution 2:
+              400x400, batch 2, rigid loss, rot_4d) trained end to end
+              through `fourdgs_tpu_torch.train.main`, its only changes the
+              scene and output paths and LEGO_TRAIN_CUTS as --override:
+              300 iterations, densify events at 200 and 300 (the second
+              with the size threshold), an opacity reset at 200, evaluation
+              and checkpoint at 300; from a Blender-format scene it writes
+              (16 train and 4 val 800x800 RGBA K1 renders of the bench
+              cloud at the origin, no points3d.ply: lego's 100k random
+              points); finite loss and no dropped instance on every step,
+              n_active changes at each event, exactly 2 K2 per step and 2
+              K1 per step plus one per evaluation view, K1 and K2 held to
+              their plain versions on the two cameras of the first step
+              after the first event (the tolerances above), test PSNR
+              above that of an evaluate() before training; then
+              render_cli on chkpnt300.pkl with --fast and without
+              (launches as in eval), each val view fast against exact
+              (1.5e-2 as in eval) and K3 against its plain version on the
+              first; step ms before and after the first event, ms per
+              event, evaluate ms
+ 11. kernels  what the warp-private walks of K1, K2 and K3 visit on these
               inputs (the share of (warp, instance) pairs that passes the
               cull, K2's shuffles and atomics per camera, counted by the
               plain versions), then one
@@ -87,6 +107,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -770,7 +791,7 @@ def train_phase(device, p=100_000, hw=800, steps=5):
         for i in range(steps):
             blend.blend_backward.observer = capture if i == 0 else None
             t1 = time.perf_counter()
-            st, m = run(st, i)
+            st, _, m = run(st, i)
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t1) * 1e3)
             metrics.append(m)
@@ -842,11 +863,13 @@ def train_phase(device, p=100_000, hw=800, steps=5):
 # Evaluation from a config and a scene on disk (kernel K3)
 # --------------------------------------------------------------------------
 
-def lookat_camera(uid, angle_deg, timestamp, hw, name=""):
-    """A camera on a circle of radius 5 around the bench cloud's centre
-    (0, 0, 5), looking at it; angle 0 is the identity pose at the origin.
-    COLMAP axes: x right, y down, z forward."""
-    centre = np.array([0.0, 0.0, 5.0])
+def lookat_camera(uid, angle_deg, timestamp, hw, name="",
+                  centre=(0.0, 0.0, 5.0)):
+    """A camera on a circle of radius 5 around `centre` (the bench cloud's
+    centre unless given), looking at it; angle 0 looks down +z (the
+    identity pose for the bench cloud). COLMAP axes: x right, y down, z
+    forward."""
+    centre = np.asarray(centre, np.float64)
     a = np.deg2rad(angle_deg)
     pos = centre + 5.0 * np.array([np.sin(a), 0.0, -np.cos(a)])
     fwd = (centre - pos) / np.linalg.norm(centre - pos)
@@ -981,6 +1004,23 @@ def k3_row(packed, bins, rec, opts, num_gaussians, label):
         k3_vs_k1=diff, **report)
 
 
+def fast_vs_exact(evaluator, cam, label):
+    """One view rendered by `evaluator` exact (K1) and fast (K3), held to
+    TOL_INFER: (the differences, the fast colour)."""
+    evaluator.eval_infer = False
+    color_e, depth_e, alpha_e = evaluator.render_view(cam)
+    evaluator.eval_infer = True
+    color_f, depth_f, alpha_f = evaluator.render_view(cam)
+    diff = dict(
+        color=float((color_f - color_e).abs().max()),
+        alpha=float((alpha_f - alpha_e).abs().max()),
+        depth_scaled=float((depth_f - depth_e).abs().max())
+        / max(1.0, float(depth_e.abs().max())))
+    check(max(diff.values()) <= TOL_INFER,
+          f"{label}: fast differs from exact by {diff}")
+    return diff, color_f
+
+
 def eval_phase(device, p=100_000, hw=800):
     """The evaluation path at full width, from files on disk through
     render_cli, with and without the packed inference blend."""
@@ -1009,17 +1049,7 @@ def eval_phase(device, p=100_000, hw=800):
     cams = evaluator.scene.test_cameras
     view_diffs = []
     for i, cam in enumerate(cams):
-        evaluator.eval_infer = False
-        color_e, depth_e, alpha_e = evaluator.render_view(cam)
-        evaluator.eval_infer = True
-        color_f, depth_f, alpha_f = evaluator.render_view(cam)
-        diff = dict(
-            color=float((color_f - color_e).abs().max()),
-            alpha=float((alpha_f - alpha_e).abs().max()),
-            depth_scaled=float((depth_f - depth_e).abs().max())
-            / max(1.0, float(depth_e.abs().max())))
-        check(max(diff.values()) <= TOL_INFER,
-              f"eval view {i}: fast differs from exact by {diff}")
+        diff, color_f = fast_vs_exact(evaluator, cam, f"eval view {i}")
         png = read_png(os.path.join(root, "renders_fast", f"{i:05d}.png"))
         png_err = float(np.abs(png / 255.0
                                - color_f.cpu().numpy()).max())
@@ -1230,6 +1260,299 @@ def viewer_phase(evaluator):
     return launches["k3"]
 
 
+# --------------------------------------------------------------------------
+# Training the lego config end to end (K1, K2), then render_cli (K1, K3)
+# --------------------------------------------------------------------------
+
+# The only changes to configs/dnerf/lego.yaml (besides the scene and output
+# paths), as `--override`s: the YAML wins over flags. Densify events at 200
+# and 300 (the second with the size threshold on), an opacity reset at 200,
+# one evaluation and checkpoint at 300.
+LEGO_TRAIN_CUTS = ["optimization.iterations=300",
+                   "optimization.densify_from_iter=100",
+                   "optimization.densification_interval=100",
+                   "optimization.densify_until_iter=301",
+                   "optimization.opacity_reset_interval=200",
+                   "test_iterations=[300]", "save_iterations=[300]",
+                   "exhaust_test=false"]
+
+
+def write_lego_scene(source, p, hw, device):
+    """A Blender-format scene named like DNeRF's lego under `source` (a
+    path ending in "lego" reads transforms_val.json as its test split): 16
+    train and 4 val views of the bench cloud moved to the origin, on a
+    circle around it, at timestamps over [0, 1]; hw x hw RGBA PNGs of exact
+    (K1) renders, straight colour and the render's alpha. No
+    points3d.ply: the trainer starts from lego's 100k random points in
+    [-1.3, 1.3]^3."""
+    from PIL import Image
+
+    shutil.rmtree(source, ignore_errors=True)
+    scene = bench_scene(p, seed=0)
+    scene["means3d"][:, 2] -= 5.0
+    renderer = GaussianRenderer(
+        from_jax_params(raw_params(scene), p, device=device),
+        pre.RenderOptions(height=hw, width=hw, gaussian_dim=4, rot_4d=True,
+                          time_duration=1.0))
+    splits = {"train": [(360.0 * i / 16, i / 15) for i in range(16)],
+              "val": [(360.0 * (i + 0.5) / 4, ts)
+                      for i, ts in enumerate((0.1, 0.4, 0.7, 0.95))]}
+    for split, views in splits.items():
+        os.makedirs(os.path.join(source, split))
+        frames = []
+        for i, (angle, ts) in enumerate(views):
+            cam = lookat_camera(i, angle, ts, hw, centre=(0.0, 0.0, 0.0))
+            color, _, alpha = renderer(cam.arrays(device))[:3]
+            straight = color / torch.clamp(alpha, min=1e-6)[..., None]
+            rgba = torch.cat([torch.clamp(straight, 0.0, 1.0),
+                              alpha[..., None]], dim=-1)
+            Image.fromarray((rgba * 255.0 + 0.5).to(torch.uint8).cpu()
+                            .numpy(), "RGBA").save(
+                os.path.join(source, split, f"r_{i:03d}.png"))
+            frames.append(blender_frame(cam, f"{split}/r_{i:03d}"))
+        with open(os.path.join(source, f"transforms_{split}.json"),
+                  "w") as f:
+            json.dump({"camera_angle_x": 1.0, "frames": frames}, f)
+
+
+def observed_trainer(trainer_cls, check_step, made):
+    """`trainer_cls` recording what the phase checks (each instance is
+    appended to `made`): the test PSNR of an
+    evaluate() before training, each step's loss, dropped instances, active
+    count and host ms (synchronised), each densify event's counts and ms,
+    each evaluate's ms and PSNR, the views rendered (one K1 each), and K1's
+    and K2's inputs and results on the two cameras of step `check_step`."""
+
+    class Observed(trainer_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.obs = dict(initial=self.n_active, steps=[], events=[],
+                            evaluations=[], views=0, k1=[], k2=[])
+            made.append(self)
+
+        def render_view(self, cam, mark=None):
+            self.obs["views"] += 1
+            return super().render_view(cam, mark)
+
+        def evaluate(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            psnr = super().evaluate(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.obs["evaluations"].append(dict(
+                step=self.step, ms=(time.perf_counter() - t1) * 1e3,
+                psnr=psnr, splits=dict(self.last_eval)))
+            return psnr
+
+        def _densify_event(self, iteration):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            info = super()._densify_event(iteration)
+            torch.cuda.synchronize()
+            self.obs["events"].append(dict(
+                it=iteration, ms=(time.perf_counter() - t1) * 1e3,
+                **info._asdict()))
+            return info
+
+        def train(self, num_iterations=None, on_step=None):
+            self.evaluate()                  # the PSNR before training
+
+            def observer(key):
+                calls = []               # two per step, one per camera
+
+                def observe(args, out):
+                    calls.append(None)
+                    if (len(calls) + 1) // 2 == check_step:
+                        self.obs[key].append((
+                            tuple(a.detach() if torch.is_tensor(a) else a
+                                  for a in args),
+                            tuple(x.clone() for x in out)
+                            if isinstance(out, tuple) else out.clone()))
+                return observe
+
+            last = [time.perf_counter()]
+
+            def record(it, m):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                self.obs["steps"].append(dict(
+                    it=it, ms=(now - last[0]) * 1e3, loss=float(m.loss),
+                    dropped=m.instances_dropped, n_active=self.n_active))
+                last[0] = now
+
+            blend.blend_forward.observer = observer("k1")
+            blend.blend_backward.observer = observer("k2")
+            try:
+                return super().train(num_iterations, on_step=record)
+            finally:
+                blend.blend_forward.observer = None
+                blend.blend_backward.observer = None
+
+    return Observed
+
+
+def train_lego_phase(device, p=100_000, hw=800, iterations=300, extra=()):
+    """The lego config trained end to end on the card from a scene on
+    disk through `fourdgs_tpu_torch.train.main` (K1 forward, K2 backward),
+    then its checkpoint rendered by render_cli with and without --fast.
+    `p` and `hw`: the scene's cloud and image size; `extra`: more
+    --override items (a rehearsal's smaller cloud). Returns the training's
+    launch counts and render_cli --fast's K3 launches."""
+    import yaml
+
+    from fourdgs_tpu_torch import train as train_cli
+    from fourdgs_tpu_torch.engine import trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "train_lego")
+    shutil.rmtree(root, ignore_errors=True)
+    source, model_dir = os.path.join(root, "lego"), os.path.join(root, "model")
+    write_lego_scene(source, p, hw, device)
+    lego_yaml = os.path.join(ROOT, "configs", "dnerf", "lego.yaml")
+    argv = ["--config", lego_yaml, "--device", str(device), "--quiet",
+            "--override", f"model.source_path={source}",
+            f"model.model_path={model_dir}"] + LEGO_TRAIN_CUTS + list(extra)
+    first_event = 200
+    setup_s = time.perf_counter() - t0
+
+    base, made = trainer_mod.Trainer, []
+    trainer_mod.Trainer = observed_trainer(base, first_event + 1, made)
+    # The main path: counts zeroed just before, read just after.
+    zero_launches()
+    t1 = time.perf_counter()
+    try:
+        rc = train_cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.Trainer = base
+    train_s = time.perf_counter() - t1
+    launches = read_launches()
+    check(rc == 0, f"train_lego: exit code {rc}")
+    check(len(made) == 1, "train_lego: no Trainer made")
+    obs = made[0].obs
+
+    steps = obs["steps"]
+    check(len(steps) == iterations, f"train_lego: {len(steps)} steps")
+    for s in steps:
+        check(np.isfinite(s["loss"]), f"train_lego it {s['it']}: loss "
+              f"{s['loss']}")
+        check(s["dropped"] == 0, f"train_lego it {s['it']}: instances "
+              "dropped")
+    events = obs["events"]
+    check([e["it"] for e in events] == [200, 300],
+          f"train_lego: densify events at {[e['it'] for e in events]}")
+    sizes = [obs["initial"]] + [e["n_active"] for e in events]
+    check(all(a != b for a, b in zip(sizes, sizes[1:])),
+          f"train_lego: n_active {sizes} unchanged at an event")
+    want = dict(k1=2 * iterations + obs["views"], k2=2 * iterations, k3=0)
+    check(launches == want, f"train_lego: launches {launches}, expected "
+          f"{want} ({obs['views']} evaluation views)")
+    before, after = obs["evaluations"][0], obs["evaluations"][-1]
+    check(before["step"] == 0 and after["step"] == iterations
+          and after["psnr"] > before["psnr"],
+          f"train_lego: test PSNR {before['psnr']} -> {after['psnr']}")
+
+    # K1 and K2 against their plain versions on the first step of the
+    # grown cloud.
+    for key in ("k1", "k2"):
+        check(len(obs[key]) == 2, f"train_lego: captured {len(obs[key])} "
+              f"{key.upper()} calls of step {first_event + 1}")
+    k1_rows = []
+    for cam_i, (args, k) in enumerate(obs["k1"]):
+        check(args[0].shape[0] == events[0]["n_active"],
+              "train_lego: K1's step did not see the grown cloud")
+        pairs = {}
+        report = errors(k, blend.blend_forward_plain(*args,
+                                                     pair_counts=pairs))
+        check_report(report, f"train_lego camera {cam_i}: K1")
+        bins = types.SimpleNamespace(tile_start=args[2],
+                                     num_rendered=args[1].numel())
+        bound, bound_by, ops = forward_bound_ms(pairs, bins,
+                                                args[0].shape[0])
+        k1_rows.append(dict(
+            camera=cam_i, step=first_event + 1, gaussians=args[0].shape[0],
+            instances=int(args[1].numel()), bound_ms=bound,
+            bound_by=bound_by, operations=ops,
+            ms=time_call(lambda: blend.launch_forward(*args), 20),
+            plain_ms=time_call(lambda: blend.blend_forward_plain(*args), 1),
+            **report))
+    k2_rows = []
+    for cam_i, (args, k) in enumerate(obs["k2"]):
+        check(args[0].shape[0] == events[0]["n_active"],
+              "train_lego: K2's step did not see the grown cloud")
+        pairs = {}
+        pl = blend.blend_backward_plain(*args, pair_counts=pairs)
+        err = grad_error(k, pl)
+        check(err <= TOL_GRAD, f"train_lego camera {cam_i}: K2 gradient "
+              f"error {err} vs the plain version")
+        bound, bound_by, ops = backward_bound_ms(pairs, args)
+        k2_rows.append(dict(
+            camera=cam_i, step=first_event + 1, gaussians=args[0].shape[0],
+            grad_err=err, abs_err=float((k - pl).abs().max()),
+            instances=int(args[1].numel()), bound_ms=bound,
+            bound_by=bound_by, operations=ops,
+            ms=time_call(lambda: blend.launch_backward(*args), 20),
+            plain_ms=time_call(lambda: blend.blend_backward_plain(*args),
+                               1)))
+
+    # The checkpoint through render_cli on the 4 val views (lego's test
+    # split): --fast (1 K3 per view) and exact (1 K1 per view).
+    with open(lego_yaml) as f:
+        cfg = yaml.safe_load(f)
+    cfg["ModelParams"].update(source_path=source, model_path=model_dir)
+    cfg_path = os.path.join(root, "lego_render.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    fast, fast_launches = run_cli(cfg_path, os.path.join(root, "renders_fast"),
+                                  True, 4, device)
+    exact, exact_launches = run_cli(
+        cfg_path, os.path.join(root, "renders_exact"), False, 4, device)
+    check(abs(exact["psnr"] - after["psnr"]) < 1e-3,
+          f"train_lego: render_cli PSNR {exact['psnr']} vs the trainer's "
+          f"{after['psnr']}")
+
+    # The checkpoint's views fast against exact, and K3 against its plain
+    # version on the first view's inputs.
+    evaluator = Evaluator(load_config(cfg_path), device=device, verbose=False)
+    evaluator.load(os.path.join(model_dir, f"chkpnt{iterations}.pkl"))
+    cams = evaluator.scene.test_cameras
+    view_diffs = [dict(view=i, **fast_vs_exact(evaluator, cam,
+                                               f"train_lego view {i}")[0])
+                  for i, cam in enumerate(cams)]
+    packed, bins, rec = infer_inputs(evaluator, cams[0])
+    k3 = k3_row(packed, bins, rec, evaluator.opts, evaluator.n_active,
+                "train_lego view 0")
+
+    def median_ms(lo, hi):
+        return float(np.median([s["ms"] for s in steps if lo <= s["it"] < hi]))
+
+    emit(dict(
+        phase="train_lego_densify", config="configs/dnerf/lego.yaml",
+        cuts=LEGO_TRAIN_CUTS + [f"scene: 16 train + 4 val {hw}x{hw} K1 "
+                                "renders of the bench cloud, no "
+                                "points3d.ply"],
+        height=made[0].opts.height, width=made[0].opts.width,
+        iterations=iterations, n_active_initial=obs["initial"],
+        events=events, step_ms_median_before_first_event=median_ms(2, 200),
+        step_ms_median_after_first_event=median_ms(202, 300),
+        steps_per_s=iterations / train_s, train_s=train_s,
+        evaluate=[dict(step=e["step"], ms=e["ms"], psnr=e["psnr"])
+                  for e in obs["evaluations"]],
+        psnr_before=before["psnr"], psnr_after=after["psnr"],
+        loss_first=steps[0]["loss"], loss_last=steps[-1]["loss"],
+        k1=k1_rows, k2=k2_rows, launches=launches,
+        evaluation_views=obs["views"],
+        render_cli=dict(fast=dict(psnr=fast["psnr"], launches=fast_launches),
+                        exact=dict(psnr=exact["psnr"],
+                                   launches=exact_launches)),
+        fast_vs_exact=view_diffs,
+        k3={key: k3[key] for key in ("num_rendered", "accum_err",
+                                     "t_final_err", "k3_vs_k1", "ms",
+                                     "k1_ms", "plain_ms", "bound_ms")},
+        setup_s=setup_s, seconds=time.perf_counter() - t0))
+    return launches, fast_launches["k3"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1275,7 +1598,10 @@ def main() -> int:
     env_k3 = eval_env_phase(device)
     viewer_k3 = viewer_phase(evaluator)
 
-    # 10. kernel summary: K1 at the 800x800 requests (means over the four),
+    # 10. the lego config trained end to end from a scene on disk
+    lego_launches, lego_k3 = train_lego_phase(device)
+
+    # 11. kernel summary: K1 at the 800x800 requests (means over the four),
     # K2 at the first training step's two cameras (means over the two), K3
     # at the first 800x800 evaluation view.
     mean = lambda rs, key: float(np.mean([r[key] for r in rs]))  # noqa: E731
@@ -1292,7 +1618,8 @@ def main() -> int:
         "replaces": "fourdgs_tpu/ops/pallas_blend.py:405",
         "launches": train_launches["k1"],
         "launches_by_path": {"serve_800x800": launches,
-                             "train_800x800": train_launches["k1"]},
+                             "train_800x800": train_launches["k1"],
+                             "train_lego_densify": lego_launches["k1"]},
         "max_abs_err": max(max(r["accum_err"], r["t_final_err"])
                            for r in rows),
         "ms": mean(rows, "kernel_ms"),
@@ -1306,6 +1633,8 @@ def main() -> int:
         "source": "fourdgs_tpu_torch/csrc/blend_backward.cu",
         "replaces": "fourdgs_tpu/ops/pallas_blend.py:606",
         "launches": train_launches["k2"],
+        "launches_by_path": {"train_800x800": train_launches["k2"],
+                             "train_lego_densify": lego_launches["k2"]},
         "max_abs_err": max(r["abs_err"] for r in k2_rows),
         # |k - p| / max(|p|.max(), 1e-3) per record column, held to 2e-4
         "max_scaled_err": max(r["grad_err"] for r in k2_rows),
@@ -1322,7 +1651,8 @@ def main() -> int:
         "launches": eval_k3,
         "launches_by_path": {"eval_800x800": eval_k3,
                              "eval_1352x1014_env": env_k3,
-                             "viewer": viewer_k3},
+                             "viewer": viewer_k3,
+                             "train_lego_densify_render_cli": lego_k3},
         "max_abs_err": max(k3_row_800["accum_err"],
                            k3_row_800["t_final_err"]),
         "ms": k3_row_800["ms"],

@@ -7,19 +7,23 @@ neither JAX nor `fourdgs_tpu`.
 
   ops/       4D gaussian math, spherindrical SH, preprocess, tile binning,
              the forward, backward and packed inference tile blends (CUDA
-             kernels in csrc/ + plain PyTorch), k nearest neighbours.
+             kernels in csrc/ + plain PyTorch), k nearest neighbours and
+             the exact 3-NN distances of the initial scales.
   models/    the gaussian parameter set as an nn.Module, the training
-             state, learning rates, Adam, densification statistics, the
+             state and initial cloud, learning rates, Adam, density
+             control (statistics, clone/split/prune, opacity reset), the
              environment map, gaussian PLY import/export.
   data/      camera math, point clouds and PLY, COLMAP readers, scene
              loading (Blender-format and COLMAP datasets).
   engine/    checkpoints (this package's and the JAX package's), the
              train step, the Evaluator (renders and metrics of a
-             checkpoint).
-  utils/     image losses and metrics, small image/file utilities.
+             checkpoint) and the Trainer built on it.
+  utils/     image losses and metrics, the metrics.jsonl log, small
+             image/file utilities.
   config.py  the YAML/dataclass configuration.
   render.py  render() (differentiable; infer=True for the packed
              forward-only path) and the serving module GaussianRenderer.
+  train.py   the training CLI (python3 -m fourdgs_tpu_torch.train).
   render_cli.py  checkpoint → PNGs + metrics.json, time sweeps, PLY
              export, the live viewer (python3 -m fourdgs_tpu_torch.render_cli).
   viewer.py  the SIBR viewer socket protocol.

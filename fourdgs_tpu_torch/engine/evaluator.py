@@ -7,7 +7,8 @@ trainer.py` (`Trainer.load`, `_make_eval_render.eval_fn`, `render_view`,
 The JAX trainer renders inside static instance budgets and regrows them on
 overflow; the port sizes each render's instance list from the true count,
 so a render is never truncated and there is nothing to regrow. Training
-(densification, cadence, checkpoints of a run) is not part of this module.
+(densification, cadence, checkpoints of a run) is `engine/trainer.py`'s
+`Trainer`, a subclass.
 """
 
 from __future__ import annotations
@@ -132,17 +133,19 @@ class Evaluator:
         if self.verbose:
             print(f"[fourdgs] {msg}", flush=True)
 
-    def load(self, path: str):
+    def load(self, path: str) -> dict:
         """Load a `.pkl` checkpoint written by this package or by the JAX
-        package onto the evaluator's device."""
+        package onto the evaluator's device. Returns the checkpoint's
+        `extra` dict."""
         if path.endswith(".pth"):
             raise NotImplementedError(
                 "reference .pth checkpoints need models/torch_import.py, "
-                "which is not ported yet (ROADMAP.md, Queue 1)")
+                "which is not ported yet (ROADMAP.md, Queue 1 item 8)")
         self.gauss, self.env, self.step, extra = ckpt_lib.load_checkpoint(
             path, device=self.device)
         self.n_active = int(self.gauss.n_active)
         self.best_psnr = extra.get("best_psnr", 0.0)
+        return extra
 
     @torch.no_grad()
     def _render_eval(self, cam: CameraArrays, intr: torch.Tensor,

@@ -5,7 +5,7 @@ PyTorch counterpart of `fourdgs_tpu/engine/step.py:build_step_fn` (the
 reference hot loop, `train.py:83-252`). The JAX step vmaps the camera
 batch; here the cameras are rendered one after another into one loss and
 one `backward()`, which is the same math (losses are averaged over the
-batch). Strips and the environment map are not ported yet.
+batch). Strips (multi-device) are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,9 +14,11 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..models import envmap as envmap_lib
 from ..models.densify import add_densification_stats
-from ..models.gaussians import (GaussianParams, GaussianState, activate,
-                                adam_update, group_lrs)
+from ..models.gaussians import (ADAM_B1, ADAM_B2, ADAM_EPS, GaussianParams,
+                                GaussianState, activate, adam_update,
+                                group_lrs)
 from ..ops import gaussmath as gm
 from ..ops import sh as shlib
 from ..ops.knn import knn
@@ -26,8 +28,7 @@ from ..utils import losses as loss_lib
 
 
 class StepConfig(NamedTuple):
-    """Per-run configuration of the train step: the JAX package's fields,
-    less the environment map's schedule."""
+    """Per-run configuration of the train step: the JAX package's fields."""
     lambda_dssim: float = 0.2
     lambda_opa_mask: float = 0.0
     lambda_rigid: float = 0.0
@@ -46,7 +47,9 @@ class StepConfig(NamedTuple):
     sh_degree: int = 3
     sh_degree_t: int = 0
     rigid_k: int = 20
-    env_map_res: int = 0       # > 0 is refused: no environment map yet
+    env_map_res: int = 0
+    env_optimize_from: int = 0
+    env_optimize_until: int = 1 << 30
     # The reference steps the optimizer only while iteration <
     # opt.iterations (`train.py:245-246`): the final iteration computes
     # grads but skips the update.
@@ -121,13 +124,43 @@ def _motion_losses(act, n_active, cfg: StepConfig):
     return rigid, motion
 
 
+def _grad_or_zeros(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's gradient, zeros where no loss term reached it (the JAX
+    step differentiates every leaf: `t`, `scaling_t` and `rotation_r` in
+    3D mode get zeros there)."""
+    return x.grad if x.grad is not None else torch.zeros_like(x)
+
+
+def env_adam_update(env: envmap_lib.EnvMapState, grad: torch.Tensor,
+                    step: int, cfg: StepConfig) -> envmap_lib.EnvMapState:
+    """The environment map's own Adam (lr feature_lr, eps 1e-15 outside
+    the sqrt; `fourdgs_tpu/engine/step.py:287-298`), stepped only while
+    env_optimize_from <= step < min(env_optimize_until, iterations)."""
+    do_env = (step < cfg.iterations and step >= cfg.env_optimize_from
+              and step < cfg.env_optimize_until)
+    if not do_env:
+        return env
+    count = env.count + 1
+    cnt = torch.clamp(count.to(torch.float32), min=1.0)
+    b1c = 1.0 - torch.pow(torch.tensor(ADAM_B1, device=cnt.device), cnt)
+    b2c = 1.0 - torch.pow(torch.tensor(ADAM_B2, device=cnt.device), cnt)
+    mu = ADAM_B1 * env.mu + (1 - ADAM_B1) * grad
+    nu = ADAM_B2 * env.nu + (1 - ADAM_B2) * grad * grad
+    upd = cfg.feature_lr * (mu / b1c) / (torch.sqrt(nu / b2c) + ADAM_EPS)
+    return envmap_lib.EnvMapState(env.texture - upd, mu, nu, count)
+
+
 def train_step(state: GaussianState, step: int,
                cams: Sequence[CameraArrays], gt: torch.Tensor,
                alpha_mask: torch.Tensor, bg: torch.Tensor, cfg: StepConfig,
-               opts: RenderOptions, mark=None):
+               opts: RenderOptions, env: envmap_lib.EnvMapState | None = None,
+               intrinsics: torch.Tensor | None = None, mark=None):
     """One optimizer step over the camera batch `cams` (B cameras; gt
-    (B, H, W, 3), alpha_mask (B, H, W), bg (3,)). Returns (new state,
-    StepMetrics). The state is not changed in place.
+    (B, H, W, 3), alpha_mask (B, H, W), bg (3,)). With cfg.env_map_res > 0
+    the sky of `env` is composited into each camera's colour before the
+    loss (rays from `intrinsics` (B, 4) [fl_x, fl_y, cx, cy]) and the map
+    takes its own Adam step. Returns (new state, new env, StepMetrics);
+    nothing is changed in place.
 
     `mark`, if given, is called with a name as soon as the work of each
     stage is issued, for timing: `render`'s marks for each camera
@@ -136,16 +169,19 @@ def train_step(state: GaussianState, step: int,
     "blend_backward_start" and "blend_backward" around each camera's
     blend backward (cotangents and K2), "backward" at its end, and
     "update" (statistics and Adam)."""
-    if cfg.env_map_res > 0:
-        raise NotImplementedError("the environment map is not ported yet")
+    has_env = cfg.env_map_res > 0
+    if has_env and (env is None or intrinsics is None):
+        raise ValueError("env_map_res > 0 needs the env map and the "
+                         "cameras' intrinsics")
     params = GaussianParams(*(x.detach().requires_grad_() for x in
                               state.params))
+    tex = env.texture.detach().requires_grad_() if has_env else None
     p = params.xyz.shape[0]
     act = activate(params, state.n_active)
     sh_mask = sh_annealing_mask(step, cfg, opts, act.sh.shape[1],
                                 act.sh.device)
-    taps, outs = [], []
-    for cam in cams:
+    taps, outs, colors = [], [], []
+    for i, cam in enumerate(cams):
         tap = torch.zeros((p, 2), dtype=params.xyz.dtype,
                           device=params.xyz.device, requires_grad=True)
         out = render(**act._asdict(), camera=cam, bg=bg, opts=opts,
@@ -155,11 +191,16 @@ def train_step(state: GaussianState, step: int,
             node.register_prehook(
                 lambda *_: mark("blend_backward_start"))
             node.register_hook(lambda *_: mark("blend_backward"))
+        color = out.color
+        if has_env:
+            color = envmap_lib.composite_sky(color, out.alpha, tex,
+                                             cam.viewmatrix, intrinsics[i])
         outs.append(out)
+        colors.append(color)
         taps.append(tap)
 
-    per_cam = [loss_lib.photometric_loss(o.color, g, cfg.lambda_dssim)
-               for o, g in zip(outs, gt)]
+    per_cam = [loss_lib.photometric_loss(c, g, cfg.lambda_dssim)
+               for c, g in zip(colors, gt)]
     loss = torch.mean(torch.stack([c[0] for c in per_cam]))
     if cfg.lambda_opa_mask > 0:
         loss = loss + cfg.lambda_opa_mask * torch.mean(torch.stack([
@@ -184,7 +225,7 @@ def train_step(state: GaussianState, step: int,
     tap_norm = torch.linalg.vector_norm(
         torch.stack([t.grad for t in taps]), dim=-1)              # (B, P)
     point_grad = tap_norm.sum(dim=0) * b / denom
-    t_grad = params.t.grad[:, 0] * b / denom
+    t_grad = _grad_or_zeros(params.t)[:, 0] * b / denom
     radii_max = torch.stack([o.radii for o in outs]).max(dim=0).values
     new = add_densification_stats(state, point_grad, t_grad, vis_count > 0,
                                   radii_max)
@@ -193,11 +234,13 @@ def train_step(state: GaussianState, step: int,
     lrs = group_lrs(cfg, cfg.spatial_lr_scale, step)
     active = torch.arange(p, device=params.xyz.device) < state.n_active
     active = active & (step < cfg.iterations)
-    grads = GaussianParams(*(x.grad for x in params))
+    grads = GaussianParams(*(_grad_or_zeros(x) for x in params))
     with torch.no_grad():
         new_params, new_adam = adam_update(
             GaussianParams(*(x.detach() for x in params)), grads,
             state.adam, lrs, update_mask=active)
+        if has_env:
+            env = env_adam_update(env, _grad_or_zeros(tex), step, cfg)
     new = new._replace(params=new_params, adam=new_adam)
     if mark:
         mark("update")
@@ -206,10 +249,10 @@ def train_step(state: GaussianState, step: int,
         loss=loss.detach(),
         l1=torch.mean(torch.stack([c[1] for c in per_cam])).detach(),
         ssim_loss=torch.mean(torch.stack([c[2] for c in per_cam])).detach(),
-        psnr=loss_lib.psnr(outs[-1].color.detach(), gt[-1]),
+        psnr=loss_lib.psnr(colors[-1].detach(), gt[-1]),
         num_rendered=max(o.num_rendered for o in outs),
         max_per_tile=torch.stack([o.max_per_tile for o in outs]).max(),
         instances_dropped=sum(o.instances_dropped for o in outs),
         n_active=state.n_active,
         rigid=rigid.detach(), motion=motion.detach())
-    return new, metrics
+    return new, env, metrics

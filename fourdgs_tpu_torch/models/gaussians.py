@@ -4,9 +4,9 @@ PyTorch counterpart of `fourdgs_tpu/models/gaussians.py`: the 9 learned
 tensors (`GaussianParams`, field names and shapes of the JAX NamedTuple and
 of the reference param groups, `gaussian_model.py:336-351`) held by an
 `nn.Module` for serving, their activation (`gaussian_model.py:49-60`), and
-for training the state as tensors (`GaussianState`) with the per-group
-learning rates and the hand-rolled torch-order Adam
-(`gaussian_model.py:331-369`). Densify and prune are not ported yet.
+for training the state as tensors (`GaussianState`), the initial cloud
+from a point cloud (`init_from_pcd`), the per-group learning rates and the
+hand-rolled torch-order Adam (`gaussian_model.py:331-369`).
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..ops import sh as shlib
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -68,7 +70,7 @@ class Activated(NamedTuple):
     active: torch.Tensor
 
 
-def _normalize(q: torch.Tensor) -> torch.Tensor:
+def normalize(q: torch.Tensor) -> torch.Tensor:
     n = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
     return q / torch.clamp(n, min=1e-12)
 
@@ -82,8 +84,8 @@ def activate(params: GaussianParams, n_active: int) -> Activated:
         t=params.t[:, 0],
         scales=torch.exp(params.scaling),
         scales_t=torch.exp(params.scaling_t[:, 0]),
-        rotations=_normalize(params.rotation),
-        rotations_r=_normalize(params.rotation_r),
+        rotations=normalize(params.rotation),
+        rotations_r=normalize(params.rotation_r),
         opacity=torch.sigmoid(params.opacity[:, 0]),
         sh=torch.cat([params.f_dc, params.f_rest], dim=1),
         active=torch.arange(p, device=params.xyz.device) < n_active,
@@ -144,6 +146,52 @@ def from_jax_state(state, device="cuda") -> GaussianState:
         adam=AdamState(params(adam.mu), params(adam.nu), adam.count),
         **{f: getattr(state, f) for f in GaussianState._fields[2:]}),
         device)
+
+
+def init_from_pcd(points: np.ndarray, colors: np.ndarray, *,
+                  sh_channels: int, time_duration=(0.0, 1.0),
+                  times: np.ndarray | None = None, seed: int = 0,
+                  mean_knn_dist2: np.ndarray | None = None,
+                  device="cuda") -> GaussianState:
+    """The initial training state of exactly the cloud's n rows on
+    `device` (reference create_from_pcd, `gaussian_model.py:259-300`;
+    `fourdgs_tpu/models/gaussians.py:init_from_pcd` less its capacity):
+      * colour DC from RGB, the rest of the SH zero;
+      * times from the ply, else uniform over 1.2 × duration − 0.1, drawn
+        from `np.random.default_rng(seed)` as the JAX package draws them;
+      * log-scale = log √(max(mean squared distance to the 3 nearest
+        neighbours, 1e-7)), the distances from `ops/knn.py` on `device`
+        unless given;
+      * scale_t = log √(duration / 5); opacity 0.1; identity quaternions.
+    The host arithmetic is the JAX package's numpy, so that equal inputs
+    give equal parameters."""
+    n = points.shape[0]
+    rng = np.random.default_rng(seed)
+    dur = time_duration[1] - time_duration[0]
+    if times is None:
+        times = ((rng.random((n, 1)) * 1.2 - 0.1) * dur
+                 + time_duration[0])
+    xyz = torch.as_tensor(np.asarray(points, np.float32), device=device)
+    if mean_knn_dist2 is None:
+        from ..ops.knn import mean_dist2_to_3nn
+        mean_knn_dist2 = mean_dist2_to_3nn(xyz).cpu().numpy()
+    dist2 = np.maximum(np.asarray(mean_knn_dist2, np.float32), 1e-7)
+    scales = np.log(np.sqrt(dist2))[:, None].repeat(3, axis=1)
+    f_dc = (np.asarray(colors, np.float32) - 0.5) / shlib.C0
+    identity = np.tile(np.float32([1, 0, 0, 0]), (n, 1))
+
+    def f32(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=device)
+
+    params = GaussianParams(
+        xyz=xyz, t=f32(times), scaling=f32(scales),
+        scaling_t=f32(np.full((n, 1), math.log(math.sqrt(dur / 5.0)))),
+        rotation=f32(identity), rotation_r=f32(identity),
+        f_dc=f32(f_dc[:, None, :]),
+        f_rest=f32(np.zeros((n, sh_channels - 1, 3))),
+        opacity=f32(np.full((n, 1), np.log(0.1 / (1 - 0.1)))))
+    return new_state(params, n)
 
 
 def new_state(params: GaussianParams, n_active: int) -> GaussianState:

@@ -260,16 +260,23 @@ def blend_forward(rec: torch.Tensor, gauss_id: torch.Tensor,
     """Forward tile blend (kernel K1). CPU tensors take the plain version;
     CUDA tensors launch the kernel, which raises if it cannot build or
     launch. Returns (accum (T, 6, 256), t_final (T, 256), n_contrib
-    (T, 256) i32)."""
+    (T, 256) i32). `blend_forward.observer`, if set, is called with (the
+    arguments, the result) of every call."""
+    args = (rec, gauss_id, tile_start, tile_count, tiles_x)
     if rec.device.type == "cpu":
-        return blend_forward_plain(rec, gauss_id, tile_start, tile_count,
-                                   tiles_x)
-    out = launch_forward(rec, gauss_id, tile_start, tile_count, tiles_x)
-    blend_forward.launches += 1
+        out = blend_forward_plain(*args)
+    else:
+        out = launch_forward(*args)
+        blend_forward.launches += 1
+    if blend_forward.observer is not None:
+        blend_forward.observer(args, out)
     return out
 
 
 blend_forward.launches = 0
+# As `blend_backward.observer`: set by a caller that checks K1 on the
+# inputs of a real training step (chip_smoke.py); nothing in the package.
+blend_forward.observer = None
 
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -459,34 +466,38 @@ def blend_backward_plain(rec: torch.Tensor, gauss_id: torch.Tensor,
                               warp_cull_keep(r[:, :, None, :], *rects), used,
                               1),
                 used.any(dim=-1).sum()])
-        grads = torch.zeros((num_tiles, chunk, REC), dtype=rec.dtype,
-                            device=device)
+        # Only the transmittance and suffix recursions run rank by rank;
+        # every other term is elementwise and is taken for the whole chunk
+        # (the same f32 operations in the same order).
+        one_m = 1.0 - alpha
+        f = [r[:, :, 6 + i, None] for i in range(NUM_FEAT)]     # (T, K, 1)
+        gdot = (dc[0][:, None] * f[0] + dc[1][:, None] * f[1]
+                + dc[2][:, None] * f[2] + dc[3][:, None] * f[3]
+                + dc[4][:, None] * f[4] + dc[5][:, None] * f[5])
+        w = torch.empty_like(alpha)
+        d_alpha = torch.empty_like(alpha)
         for k in reversed(range(chunk)):
             u = used[:, k]
-            a = alpha[:, k]
-            f = r[:, k, 6:12, None]                             # (T, 6, 1)
-            one_m = 1.0 - a
-            t_before = torch.where(u, t / one_m, t)
-            w = torch.where(u, a * t_before, 0.0)
-            gdot = (dc[0] * f[:, 0] + dc[1] * f[:, 1] + dc[2] * f[:, 2]
-                    + dc[3] * f[:, 3] + dc[4] * f[:, 4] + dc[5] * f[:, 5])
-            d_alpha = torch.where(
-                u, t_before * gdot - (sigma + tf) / one_m, 0.0)
-            sigma = torch.where(u, sigma + w * gdot, sigma)
+            t_before = torch.where(u, t / one_m[:, k], t)
+            w[:, k] = torch.where(u, alpha[:, k] * t_before, 0.0)
+            d_alpha[:, k] = torch.where(
+                u, t_before * gdot[:, k] - (sigma + tf) / one_m[:, k], 0.0)
+            sigma = torch.where(u, sigma + w[:, k] * gdot[:, k], sigma)
             t = t_before
-            # Masked again: exp(power) may overflow where power > 0.
-            d_power = torch.where(u, raw[:, k] * d_alpha, 0.0)
-            d_opa = torch.where(u, g[:, k] * d_alpha, 0.0)
-            ddx, ddy = dx[:, k], dy[:, k]
-            ca, cb, cc = r[:, k, 2:3], r[:, k, 3:4], r[:, k, 4:5]
-            sx = ca * ddx + cb * ddy
-            sy = cb * ddx + cc * ddy
-            terms = torch.stack([
-                -sx * d_power, -sy * d_power,
-                -0.5 * ddx * ddx * d_power, -ddx * ddy * d_power,
-                -0.5 * ddy * ddy * d_power, d_opa,
-                w * dc[0], w * dc[1], w * dc[2], w * dc[3]], dim=1)
-            grads[:, k, :NUM_GRAD] = terms.sum(dim=-1)
+        # Masked again: exp(power) may overflow where power > 0.
+        d_power = torch.where(used, raw * d_alpha, 0.0)
+        d_opa = torch.where(used, g * d_alpha, 0.0)
+        ca, cb, cc = r[:, :, 2:3], r[:, :, 3:4], r[:, :, 4:5]
+        sx = ca * dx + cb * dy
+        sy = cb * dx + cc * dy
+        terms = (-sx * d_power, -sy * d_power, -0.5 * dx * dx * d_power,
+                 -dx * dy * d_power, -0.5 * dy * dy * d_power, d_opa,
+                 w * dc[0][:, None], w * dc[1][:, None], w * dc[2][:, None],
+                 w * dc[3][:, None])
+        grads = torch.zeros((num_tiles, chunk, REC), dtype=rec.dtype,
+                            device=device)
+        for i, term in enumerate(terms):                      # (T, K, PIX)
+            grads[:, :, i] = term.sum(dim=-1)
         d_rec.index_add_(0, gid[in_range], grads[in_range])
     if pair_counts is not None:
         pair_counts.update(zip(("evaluated", "power_ok", "used")

@@ -112,13 +112,22 @@ def marginal_t_separable(t, scales_t, timestamp,
     return torch.exp(-0.5 * dt * dt / torch.clamp(var, min=1e-12))
 
 
+def quat_rows(quats: torch.Tensor):
+    """Rotation matrix entries of a unit wxyz quaternion as 9 (P,) columns:
+    r[i][j] is entry (i, j) (`general_utils.py:79-100`)."""
+    r_, x, y, z = quats.unbind(-1)
+    return [[1 - 2 * (y * y + z * z), 2 * (x * y - r_ * z),
+             2 * (x * z + r_ * y)],
+            [2 * (x * y + r_ * z), 1 - 2 * (x * x + z * z),
+             2 * (y * z - r_ * x)],
+            [2 * (x * z - r_ * y), 2 * (y * z + r_ * x),
+             1 - 2 * (x * x + y * y)]]
+
+
 def cov3d_columnar(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
     """3D covariance R S² Rᵀ from a unit wxyz quaternion: packed (P, 6)
     [xx, xy, xz, yy, yz, zz]."""
-    r_, x, y, z = quats.unbind(-1)
-    rr = [[1 - 2 * (y * y + z * z), 2 * (x * y - r_ * z), 2 * (x * z + r_ * y)],
-          [2 * (x * y + r_ * z), 1 - 2 * (x * x + z * z), 2 * (y * z - r_ * x)],
-          [2 * (x * z - r_ * y), 2 * (y * z + r_ * x), 1 - 2 * (x * x + y * y)]]
+    rr = quat_rows(quats)
     s2 = [scales[..., k] ** 2 for k in range(3)]
 
     def entry(i, j):

@@ -1,4 +1,5 @@
-"""k nearest neighbours of the gaussian means, for the rigid loss.
+"""k nearest neighbours of the gaussian means: the rigid loss's `knn` and
+the initial scales' `mean_dist2_to_3nn`.
 
 PyTorch counterpart of `fourdgs_tpu/ops/knn.py:knn` (the reference's
 pointops `knnquery`, `utils/general_utils.py:170-184`): exact for small N;
@@ -15,6 +16,33 @@ import torch
 
 EXACT_MAX = 2048   # the exact O(N²) path up to this many points
 GROUP_PAIRS = 1 << 27  # distance-matrix floats of one group of sweep blocks
+NN3_PAIRS = 1 << 26    # distance-matrix floats of one row chunk of the 3-NN
+
+
+def mean_dist2_to_3nn(points: torch.Tensor) -> torch.Tensor:
+    """(N,) mean squared distance of each of the (N, 3) `points` to its 3
+    nearest other points (the reference's simple-knn `distCUDA2`,
+    `gaussian_model.py:274`; the JAX package's `native.mean_dist2_to_3nn`).
+    Exact: every pair, in row chunks of about `NN3_PAIRS` distances,
+    each summed difference-first as dx² + dy² + dz², and the mean of the
+    three smallest as (d0 + d1 + d2) / 3. Duplicate points are each
+    other's neighbours at distance 0. Up to 4 points: 1e-4 each, as the
+    JAX package's native path gives."""
+    n = points.shape[0]
+    if n <= 4:
+        return torch.full((n,), 1e-4, dtype=points.dtype,
+                          device=points.device)
+    rows = max(1, NN3_PAIRS // n)
+    out = []
+    for r0 in range(0, n, rows):
+        blk = points[r0:r0 + rows]
+        d2 = sum((blk[:, None, a] - points[None, :, a]) ** 2
+                 for a in range(3))
+        own = torch.arange(blk.shape[0], device=points.device)
+        d2[own, r0 + own] = float("inf")
+        near = torch.topk(d2, 3, dim=1, largest=False).values
+        out.append((near[:, 0] + near[:, 1] + near[:, 2]) / 3.0)
+    return torch.cat(out)
 
 
 def _pass_rotation(p: int) -> np.ndarray:

@@ -165,6 +165,27 @@ def test_plain_blend_counts_no_launch(rng):
     assert port_blend.blend_forward.launches == before
 
 
+def test_forward_observer_sees_each_call(rng):
+    """`blend_forward.observer` receives the arguments and the result of
+    every call, through `Blend`'s forward."""
+    _, jproc = _jax_proc(random_scene(rng, p=56))
+    opts = port_pre.RenderOptions(**OPTS)
+    proc = port_pre.ProcessedGaussians(*to_torch(jproc))
+    bins = port_binning.bin_gaussians(proc, opts)
+    rec = port_blend.build_records(proc)
+    seen = []
+    port_blend.blend_forward.observer = lambda a, out: seen.append((a, out))
+    try:
+        port_blend.Blend.apply(rec, torch.as_tensor(BG), bins, opts)
+    finally:
+        port_blend.blend_forward.observer = None
+    assert len(seen) == 1
+    args, out = seen[0]
+    assert args[1] is bins.gauss_id and args[-1] == opts.tiles_x
+    for got, want in zip(out, port_blend.blend_forward_plain(*args)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 def test_ctiles_to_image_matches_jax(rng):
     opts = port_pre.RenderOptions(**OPTS)
     x = rng.normal(size=(opts.num_tiles, 3, 256)).astype(np.float32)

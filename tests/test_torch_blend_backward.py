@@ -18,6 +18,7 @@ from fourdgs_tpu.ops import pallas_blend
 from fourdgs_tpu.ops import preprocess as jax_pre
 from fourdgs_tpu_torch.ops import binning as port_binning
 from fourdgs_tpu_torch.ops import blend as port_blend
+from fourdgs_tpu_torch.ops import gaussmath as port_gm
 from fourdgs_tpu_torch.ops import preprocess as port_pre
 
 from torch_helpers import (assert_scaled_close, corner_scene,
@@ -213,6 +214,87 @@ def test_backward_observer_sees_each_call(rng):
     args, out = seen[0]
     assert args[1] is bins.gauss_id and args[-1] == opts.tiles_x
     np.testing.assert_array_equal(out.numpy(), rec.grad.numpy())
+
+
+def _rank_by_rank_backward(rec, gauss_id, tile_start, t_final, n_contrib,
+                           dcot, tiles_x):
+    """`blend_backward_plain` as it was written first: every term of a
+    chunk taken rank by rank inside the recursion (kept here to show that
+    the chunk-wide terms change no bit)."""
+    num_tiles = tile_start.shape[0]
+    px, py = port_blend._tile_pixel_coords(num_tiles, tiles_x, rec.device)
+    dc = [dcot[:, f] for f in range(port_blend.NUM_FEAT)]
+    tf = dcot[:, port_blend.NUM_FEAT]
+    t = t_final.clone()
+    sigma = torch.zeros_like(t)
+    d_rec = torch.zeros_like(rec)
+    ncon = n_contrib.to(torch.int64)
+    max_rank = ncon.max(dim=1).values
+    chunk = port_blend.PLAIN_CHUNK
+    ranks = torch.arange(chunk)
+    start = tile_start.to(torch.int64)[:, None]
+    for c0 in reversed(range(0, int(max_rank.max()), chunk)):
+        rank = c0 + ranks
+        in_range = rank[None, :] < max_rank[:, None]
+        gid = gauss_id[torch.where(in_range, start + rank[None, :], 0)]
+        gid = gid.to(torch.int64)
+        r = rec[gid]
+        dx = r[:, :, 0:1] - px[:, None, :]
+        dy = r[:, :, 1:2] - py[:, None, :]
+        power = (-0.5 * (r[:, :, 2:3] * dx * dx + r[:, :, 4:5] * dy * dy)
+                 - r[:, :, 3:4] * dx * dy)
+        g = torch.exp(power)
+        raw = r[:, :, 5:6] * g
+        alpha = torch.clamp(raw, max=port_gm.ALPHA_CLAMP)
+        evaluated = rank[None, :, None] < ncon[:, None, :]
+        used = evaluated & (power <= 0.0) & (alpha >= port_gm.ALPHA_MIN)
+        grads = torch.zeros((num_tiles, chunk, port_blend.REC))
+        for k in reversed(range(chunk)):
+            u = used[:, k]
+            a = alpha[:, k]
+            f = r[:, k, 6:12, None]
+            one_m = 1.0 - a
+            t_before = torch.where(u, t / one_m, t)
+            w = torch.where(u, a * t_before, 0.0)
+            gdot = (dc[0] * f[:, 0] + dc[1] * f[:, 1] + dc[2] * f[:, 2]
+                    + dc[3] * f[:, 3] + dc[4] * f[:, 4] + dc[5] * f[:, 5])
+            d_alpha = torch.where(
+                u, t_before * gdot - (sigma + tf) / one_m, 0.0)
+            sigma = torch.where(u, sigma + w * gdot, sigma)
+            t = t_before
+            d_power = torch.where(u, raw[:, k] * d_alpha, 0.0)
+            d_opa = torch.where(u, g[:, k] * d_alpha, 0.0)
+            ddx, ddy = dx[:, k], dy[:, k]
+            ca, cb, cc = r[:, k, 2:3], r[:, k, 3:4], r[:, k, 4:5]
+            sx = ca * ddx + cb * ddy
+            sy = cb * ddx + cc * ddy
+            terms = torch.stack([
+                -sx * d_power, -sy * d_power,
+                -0.5 * ddx * ddx * d_power, -ddx * ddy * d_power,
+                -0.5 * ddy * ddy * d_power, d_opa,
+                w * dc[0], w * dc[1], w * dc[2], w * dc[3]], dim=1)
+            grads[:, k, :port_blend.NUM_GRAD] = terms.sum(dim=-1)
+        d_rec.index_add_(0, gid[in_range], grads[in_range])
+    return d_rec
+
+
+@pytest.mark.parametrize("scene_name", sorted(SCENES))
+def test_plain_backward_equals_rank_by_rank_version(rng, scene_name):
+    """The plain version, which takes every term but the two recursions
+    for a whole chunk at once, equals the rank-by-rank version bit for bit
+    on the inputs a real backward gives it."""
+    opts, _, proc, cots = _setup(rng, scene_name)
+    seen = []
+    port_blend.blend_backward.observer = lambda a, out: seen.append(a)
+    try:
+        _port_grads(opts, proc, cots)
+    finally:
+        port_blend.blend_backward.observer = None
+    args = tuple(a.detach() if torch.is_tensor(a) else a for a in seen[0])
+    got = port_blend.blend_backward_plain(*args)
+    assert bool((got != 0).any())
+    np.testing.assert_array_equal(got.numpy(),
+                                  _rank_by_rank_backward(*args).numpy())
 
 
 def test_image_to_ctiles_inverts_ctiles_to_image(rng):

@@ -1,7 +1,8 @@
 """The port stands alone: every module of fourdgs_tpu_torch, and
 chip_smoke.py, import with JAX and the JAX package blocked, and reading a
 checkpoint written by the JAX package (through GaussianRenderer, and
-through a config file, a scene on disk, Evaluator and render_cli) loads
+through a config file, a scene on disk, Evaluator and render_cli) and
+training that scene through the CLI (`fourdgs_tpu_torch.train`) load
 neither. PyYAML and Pillow are imported by the functions that need them,
 not when a module is imported."""
 
@@ -64,13 +65,25 @@ rc = render_cli.main(["--config", sys.argv[3], "--checkpoint", sys.argv[2],
 assert rc == 0 and os.path.exists(os.path.join(out_dir, "metrics.json"))
 assert "yaml" in sys.modules and "PIL" in sys.modules
 
+# The training path: the CLI trains the same scene through a densify event.
+from fourdgs_tpu_torch import train as train_cli
+train_dir = os.path.join(os.path.dirname(sys.argv[2]), "train_out")
+rc = train_cli.main(["--config", sys.argv[3], "--device", "cpu", "--quiet",
+                     "--model_path", train_dir, "--override",
+                     "optimization.iterations=3",
+                     "optimization.densify_from_iter=1",
+                     "optimization.densification_interval=2",
+                     "test_iterations=[]", "save_iterations=[3]"])
+assert rc == 0 and os.path.exists(os.path.join(train_dir, "chkpnt3.pkl"))
+
 loaded = sorted(m for m in sys.modules if banned(m))
 print("MODULES", len(names), "EARLY", early, "BANNED", loaded)
 """
 
-REQUIRED = ("config", "render_cli", "viewer", "data.scene", "data.colmap",
-            "data.pointcloud", "engine.evaluator", "models.envmap",
-            "models.ply_io", "utils.image")
+REQUIRED = ("config", "render_cli", "viewer", "train", "data.scene",
+            "data.colmap", "data.pointcloud", "engine.evaluator",
+            "engine.trainer", "models.densify", "models.envmap",
+            "models.ply_io", "utils.image", "utils.metrics_log")
 
 
 def test_port_imports_no_jax(tmp_path, rng):

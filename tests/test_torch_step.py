@@ -185,9 +185,28 @@ def test_sh_annealing_mask_matches_jax(gaussian_dim, force_3d):
                                       err_msg=f"step {step}")
 
 
-def test_train_step_matches_jax(rng):
-    b, hw, n, capacity, step = 2, 64, 300, 320, 2500
+# Modes of the step (StepConfig and RenderOptions fields over the lego
+# defaults, the SH channels, the background and a random opacity mask).
+MODES = {
+    "lego": {},
+    # Pure 3DGS: t, scaling_t and rotation_r never reach the loss (their
+    # gradients are zeros in both packages).
+    "gaussian_dim_3": dict(gaussian_dim=3, rot_4d=False, channels=16,
+                           sh_degree_t=0, lambda_rigid=0.0),
+    "rot_4d_off": dict(rot_4d=False),
+    "force_sh_3d": dict(force_sh_3d=True, channels=16),
+    "opa_mask_white": dict(lambda_opa_mask=0.1, white=True, mask=True),
+    "motion": dict(lambda_motion=0.5),
+}
+OPT_KEYS = ("gaussian_dim", "rot_4d", "force_sh_3d")
+
+
+def _mode_inputs(rng, mode, b, hw, n, capacity):
+    """(JAX state, cameras, gt, mask, bg, StepConfig kwargs, options) of
+    one mode of the step."""
+    m = MODES[mode]
     scene = random_scene(rng, p=n)
+    scene["sh"] = scene["sh"][:, :m.get("channels", 48)]
     state = _jax_state(rng, scene, capacity)
     # Cameras half a unit behind the origin: the padding rows sit at the
     # origin, and at a camera centre their SH direction is 0/0, which
@@ -196,13 +215,26 @@ def test_train_step_matches_jax(rng):
                    fovx=1.0, fovy=1.0, width=hw, height=hw, timestamp=ts)
             for i, ts in enumerate((0.3, 0.6))]
     gt = rng.random((b, hw, hw, 3)).astype(np.float32)
-    mask = np.ones((b, hw, hw), np.float32)
-    bg = np.zeros(3, np.float32)
-    opts = dict(height=hw, width=hw, gaussian_dim=4, rot_4d=True,
-                time_duration=1.0)
+    mask = (rng.random((b, hw, hw)) > 0.5 if m.get("mask")
+            else np.ones((b, hw, hw))).astype(np.float32)
+    bg = np.full(3, 1.0 if m.get("white") else 0.0, np.float32)
+    step_kw = {**LEGO, **{k: v for k, v in m.items() if k in
+                          ("sh_degree_t", "lambda_rigid", "lambda_opa_mask",
+                           "lambda_motion")}}
+    opts = dict(dict(height=hw, width=hw, gaussian_dim=4, rot_4d=True,
+                     time_duration=1.0),
+                **{k: m[k] for k in OPT_KEYS if k in m})
+    return state, cams, gt, mask, bg, step_kw, opts
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_train_step_matches_jax(rng, mode):
+    b, hw, n, capacity, step = 2, 64, 300, 320, 2500
+    state, cams, gt, mask, bg, step_kw, opts = _mode_inputs(
+        rng, mode, b, hw, n, capacity)
 
     step_fn = jax.jit(jax_step.build_step_fn(
-        JaxOptions(**opts), jax_step.StepConfig(**LEGO), capacity=16384,
+        JaxOptions(**opts), jax_step.StepConfig(**step_kw), capacity=16384,
         max_per_tile=1024, chunk=32, batch_size=b, backend="xla",
         fast_grad_reduce=False))
     jnew, _, jm = step_fn(jax.tree.map(jnp.asarray, state), None,
@@ -211,17 +243,19 @@ def test_train_step_matches_jax(rng):
                           jnp.asarray(gt), jnp.asarray(mask),
                           jnp.zeros((b, 4), jnp.float32), jnp.asarray(bg))
 
-    new, m = port_step.train_step(
+    new, env, m = port_step.train_step(
         port_gaussians.from_jax_state(state, device="cpu"), step,
         [port_camera(c) for c in cams], torch.as_tensor(gt),
         torch.as_tensor(mask), torch.as_tensor(bg),
-        port_step.StepConfig(**LEGO), RenderOptions(**opts))
+        port_step.StepConfig(**step_kw), RenderOptions(**opts))
+    assert env is None
 
-    for f in ("loss", "l1", "ssim_loss", "psnr", "rigid"):
+    for f in ("loss", "l1", "ssim_loss", "psnr", "rigid", "motion"):
         np.testing.assert_allclose(float(getattr(m, f)),
                                    float(getattr(jm, f)), rtol=1e-5,
                                    err_msg=f)
-    assert float(m.rigid) > 0.0
+    assert (float(m.rigid) > 0.0) == (step_kw["lambda_rigid"] > 0)
+    assert (float(m.motion) > 0.0) == (step_kw.get("lambda_motion", 0) > 0)
     assert m.num_rendered == int(jm.num_rendered)
     assert int(m.max_per_tile) == int(jm.max_per_tile)
     assert m.instances_dropped == 0 == int(jm.instances_dropped)
@@ -238,20 +272,83 @@ def test_train_step_matches_jax(rng):
         jg = np.asarray(getattr(jnew.adam.mu, f)) / 0.1   # the gradient
         g = getattr(new.adam.mu, f).numpy() / 0.1
         assert np.isfinite(g).all(), f"NaN or inf in the {f} gradient"
+        # Padding rows neither learn nor move.
+        np.testing.assert_array_equal(getattr(new.params, f).numpy()[n:],
+                                      getattr(state.params, f)[n:])
+        if not jg.any():        # a leaf no loss term reaches
+            np.testing.assert_array_equal(g, 0.0, err_msg=f)
+            np.testing.assert_array_equal(getattr(new.params, f).numpy(),
+                                          getattr(state.params, f))
+            continue
         assert_scaled_close(g, jg, f)
         big = np.abs(jg) > 1e-3 * np.abs(jg).max()
-        assert big.any(), f
         np.testing.assert_allclose(
             getattr(new.params, f).numpy()[big],
             np.asarray(getattr(jnew.params, f))[big], rtol=1e-5, atol=1e-7,
             err_msg=f)
-        # Padding rows neither learn nor move.
-        np.testing.assert_array_equal(getattr(new.params, f).numpy()[n:],
-                                      getattr(state.params, f)[n:])
+    if mode == "gaussian_dim_3":
+        assert not np.asarray(jnew.adam.mu.t).any()
 
 
-def test_train_step_refuses_env_map():
-    with pytest.raises(NotImplementedError, match="environment map"):
-        port_step.train_step(None, 0, [], None, None, None,
-                             port_step.StepConfig(env_map_res=16),
-                             RenderOptions(height=8, width=8))
+@pytest.mark.parametrize("window", ["inside", "outside"])
+def test_train_step_env_map_matches_jax(rng, window):
+    """The sky of a 16x16 environment map composited into each camera's
+    colour and the map's own Adam step, inside the env_optimize window and
+    before it (the map then keeps its texture, moments and count)."""
+    from fourdgs_tpu.engine.trainer import camera_intrinsics
+    from fourdgs_tpu.models import envmap as jax_env
+    from fourdgs_tpu_torch.models import envmap as port_env
+
+    b, hw, n, capacity, step = 2, 48, 200, 220, 2500
+    state, cams, gt, mask, bg, step_kw, opts = _mode_inputs(
+        rng, "lego", b, hw, n, capacity)
+    step_kw = dict(step_kw, env_map_res=16,
+                   env_optimize_from=0 if window == "inside" else step + 1)
+    f32 = lambda *s: rng.random(s).astype(np.float32)  # noqa: E731
+    env = jax_env.EnvMapState(texture=f32(16, 16, 3),
+                              mu=(f32(16, 16, 3) - 0.5) * 1e-3,
+                              nu=f32(16, 16, 3) * 1e-6, count=np.int32(9))
+    intr = np.stack([camera_intrinsics(c) for c in cams])
+
+    step_fn = jax.jit(jax_step.build_step_fn(
+        JaxOptions(**opts), jax_step.StepConfig(**step_kw), capacity=16384,
+        max_per_tile=1024, chunk=32, batch_size=b, backend="xla",
+        fast_grad_reduce=False))
+    jnew, jenv, jm = step_fn(
+        jax.tree.map(jnp.asarray, state), jax.tree.map(jnp.asarray, env),
+        jnp.int32(step), jax.tree.map(jnp.asarray, stack_cameras(cams)),
+        jnp.asarray(gt), jnp.asarray(mask), jnp.asarray(intr),
+        jnp.asarray(bg))
+
+    new, penv, m = port_step.train_step(
+        port_gaussians.from_jax_state(state, device="cpu"), step,
+        [port_camera(c) for c in cams], torch.as_tensor(gt),
+        torch.as_tensor(mask), torch.as_tensor(bg),
+        port_step.StepConfig(**step_kw), RenderOptions(**opts),
+        env=port_env.from_jax_envmap(env, device="cpu"),
+        intrinsics=torch.as_tensor(intr))
+
+    for f in ("loss", "l1", "ssim_loss", "psnr"):
+        np.testing.assert_allclose(float(getattr(m, f)),
+                                   float(getattr(jm, f)), rtol=1e-5,
+                                   err_msg=f)
+    assert int(penv.count) == int(jenv.count) == (10 if window == "inside"
+                                                  else 9)
+    if window == "outside":
+        for f in ("texture", "mu", "nu"):
+            np.testing.assert_array_equal(getattr(penv, f).numpy(),
+                                          getattr(env, f), err_msg=f)
+    else:
+        # The map's gradient, read from its first moment: (mu − 0.9·mu0)/0.1.
+        jg = (np.asarray(jenv.mu) - 0.9 * env.mu) / 0.1
+        g = (penv.mu.numpy() - 0.9 * env.mu) / 0.1
+        assert np.abs(jg).max() > 1e-3
+        assert_scaled_close(g, jg, "env texture")
+        np.testing.assert_allclose(penv.nu.numpy(), np.asarray(jenv.nu),
+                                   rtol=1e-4, atol=1e-12)
+        np.testing.assert_allclose(penv.texture.numpy(),
+                                   np.asarray(jenv.texture), rtol=1e-5,
+                                   atol=1e-6)
+    # The gaussians' step sees the sky too.
+    jg = np.asarray(jnew.adam.mu.f_dc) / 0.1
+    assert_scaled_close(new.adam.mu.f_dc.numpy() / 0.1, jg, "f_dc")
