@@ -9,7 +9,8 @@ It builds every CUDA kernel of fourdgs_tpu_torch/csrc/ with nvcc (into
 build/kernels/, one nvcc per source, all started together), holds each
 kernel against its plain PyTorch version on the card, then serves renders
 of the full-width model, takes training steps on it and evaluates a
-checkpoint of it from files on disk and trains the lego config end to end
+checkpoint of it from files on disk, trains the lego config end to end,
+generates the configs/synth datasets and trains both synth configs
 through the port's entry points, and times them:
 
   1. device   the card's name and power limit (nvidia-smi); no CUDA → exit 1
@@ -85,7 +86,38 @@ through the port's entry points, and times them:
               (1.5e-2 as in eval) and K3 against its plain version on the
               first; step ms before and after the first event, ms per
               event, evaluate ms
- 11. kernels  what the warp-private walks of K1, K2 and K3 visit on these
+ 11. train_synth_quality  configs/synth/quality.yaml, the north-star
+              scenario: the ground-truth oracle's frames on the card equal
+              to the CPU's with TF32 allowed by the caller (2 poses at
+              48x48, points_scale 0.05, white and black, 1e-5); its
+              dataset generated on the card through
+              `python -m fourdgs_tpu_torch.gen_synth_dataset` (120 train
+              and 20 test views at 400x400, 4,670 points, seed 0; seconds
+              and ms per frame), then the first 1000 of its 10k iterations
+              through `fourdgs_tpu_torch.train.main`, every schedule kept
+              (SYNTH_QUALITY_CUTS: the white-background opacity reset at
+              500, densify events at 600-1000), evaluations at 500 and
+              1000; a finite loss on every step, held-out PSNR >= 26 dB at
+              1000, the TensorBoard event file holding the reference's
+              tags at the JAX trainer's cadence, launches as in
+              train_lego, K1 and K2 held to their plain versions on the
+              cameras of step 601, chkpnt1000.pkl through render_cli
+              (--fast and exact), every test view fast against exact and
+              K3 against its plain version on view 0; steps/s, step ms
+              before and after the first event and in stages, ms per
+              event, n_active after each, evaluate seconds, PSNR and SSIM
+ 12. train_synth_dynerf  configs/synth/dynerf_quality.yaml: the DyNeRF
+              dataset generated on the card (15 cameras, camera 0 held out,
+              400x400; cut to 12 frames per camera and 4 test frames), 200
+              iterations as the config is (lazy dataloader, batch 4, the
+              128x128 env map trained from 0, opacity-mask, rigid and
+              motion losses; SYNTH_DYNERF_CUTS: one densify event at 200);
+              a finite loss on every step, held-out PSNR up, the env
+              texture moved, rigid and motion terms in metrics.jsonl, the
+              GT cache on the device where the JAX trainer's rule puts it,
+              K1 and K2 held to their plain versions on the four cameras
+              of step 101; step ms and knn's share of a staged step
+ 13. kernels  what the warp-private walks of K1, K2 and K3 visit on these
               inputs (the share of (warp, instance) pairs that passes the
               cull, K2's shuffles and atomics per camera, counted by the
               plain versions), then one
@@ -132,6 +164,7 @@ from fourdgs_tpu_torch.ops import preprocess as pre  # noqa: E402
 from fourdgs_tpu_torch.render import (  # noqa: E402
     GaussianRenderer, blend_inputs, render)
 from fourdgs_tpu_torch.utils import losses  # noqa: E402
+from fourdgs_tpu_torch.utils.tb_writer import read_tags  # noqa: E402
 from fourdgs_tpu_torch.viewer import ViewerServer  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -1321,18 +1354,24 @@ def observed_trainer(trainer_cls, check_step, made):
     evaluate() before training, each step's loss, dropped instances, active
     count and host ms (synchronised), each densify event's counts and ms,
     each evaluate's ms and PSNR, the views rendered (one K1 each), and K1's
-    and K2's inputs and results on the two cameras of step `check_step`."""
+    and K2's inputs and results on the cameras of training step
+    `check_step` (None: none)."""
 
     class Observed(trainer_cls):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             self.obs = dict(initial=self.n_active, steps=[], events=[],
                             evaluations=[], views=0, k1=[], k2=[])
+            self._rendering_view = False
             made.append(self)
 
         def render_view(self, cam, mark=None):
             self.obs["views"] += 1
-            return super().render_view(cam, mark)
+            self._rendering_view = True
+            try:
+                return super().render_view(cam, mark)
+            finally:
+                self._rendering_view = False
 
         def evaluate(self, *args, **kwargs):
             torch.cuda.synchronize()
@@ -1358,16 +1397,16 @@ def observed_trainer(trainer_cls, check_step, made):
             self.evaluate()                  # the PSNR before training
 
             def observer(key):
-                calls = []               # two per step, one per camera
-
                 def observe(args, out):
-                    calls.append(None)
-                    if (len(calls) + 1) // 2 == check_step:
-                        self.obs[key].append((
-                            tuple(a.detach() if torch.is_tensor(a) else a
-                                  for a in args),
-                            tuple(x.clone() for x in out)
-                            if isinstance(out, tuple) else out.clone()))
+                    # During training step it, self.step is still it - 1.
+                    if (self._rendering_view or check_step is None
+                            or self.step != check_step - 1):
+                        return
+                    self.obs[key].append((
+                        tuple(a.detach() if torch.is_tensor(a) else a
+                              for a in args),
+                        tuple(x.clone() for x in out)
+                        if isinstance(out, tuple) else out.clone()))
                 return observe
 
             last = [time.perf_counter()]
@@ -1391,6 +1430,147 @@ def observed_trainer(trainer_cls, check_step, made):
     return Observed
 
 
+def step_kernel_rows(obs, check_step, n_active, batch, label):
+    """K1 and K2 held to their plain versions on the `batch` cameras of
+    training step `check_step` that `observed_trainer` captured, the cloud
+    `n_active` gaussians: (K1 rows, K2 rows) with error, ms, plain ms and
+    bound."""
+    for key in ("k1", "k2"):
+        check(len(obs[key]) == batch, f"{label}: captured {len(obs[key])} "
+              f"{key.upper()} calls of step {check_step}")
+    k1_rows = []
+    for cam_i, (args, k) in enumerate(obs["k1"]):
+        check(args[0].shape[0] == n_active,
+              f"{label}: K1's step did not see the grown cloud")
+        pairs = {}
+        report = errors(k, blend.blend_forward_plain(*args,
+                                                     pair_counts=pairs))
+        check_report(report, f"{label} camera {cam_i}: K1")
+        bins = types.SimpleNamespace(tile_start=args[2],
+                                     num_rendered=args[1].numel())
+        bound, bound_by, ops = forward_bound_ms(pairs, bins,
+                                                args[0].shape[0])
+        k1_rows.append(dict(
+            camera=cam_i, step=check_step, gaussians=args[0].shape[0],
+            instances=int(args[1].numel()), bound_ms=bound,
+            bound_by=bound_by, operations=ops,
+            ms=time_call(lambda: blend.launch_forward(*args), 20),
+            plain_ms=time_call(lambda: blend.blend_forward_plain(*args), 1),
+            **report))
+    k2_rows = []
+    for cam_i, (args, k) in enumerate(obs["k2"]):
+        check(args[0].shape[0] == n_active,
+              f"{label}: K2's step did not see the grown cloud")
+        pairs = {}
+        pl = blend.blend_backward_plain(*args, pair_counts=pairs)
+        err = grad_error(k, pl)
+        check(err <= TOL_GRAD, f"{label} camera {cam_i}: K2 gradient "
+              f"error {err} vs the plain version")
+        bound, bound_by, ops = backward_bound_ms(pairs, args)
+        k2_rows.append(dict(
+            camera=cam_i, step=check_step, gaussians=args[0].shape[0],
+            grad_err=err, abs_err=float((k - pl).abs().max()),
+            instances=int(args[1].numel()), bound_ms=bound,
+            bound_by=bound_by, operations=ops,
+            ms=time_call(lambda: blend.launch_backward(*args), 20),
+            plain_ms=time_call(lambda: blend.blend_backward_plain(*args),
+                               1)))
+    return k1_rows, k2_rows
+
+
+def render_checkpoint(root, config_yaml, source, model_dir, checkpoint,
+                      views, trainer_psnr, label, device):
+    """The latest chkpnt<it>.pkl of `model_dir` (`checkpoint`) through
+    render_cli on its test split, --fast (1 K3 per view) and exact (1 K1
+    per view), the exact PSNR equal to the trainer's; then every test view
+    fast against exact (TOL_INFER) and K3 against its plain version on the
+    first view's inputs."""
+    import yaml
+
+    with open(config_yaml) as f:
+        cfg = yaml.safe_load(f)
+    cfg["ModelParams"].update(source_path=source, model_path=model_dir)
+    cfg_path = os.path.join(root, "render.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    fast, fast_launches = run_cli(cfg_path, os.path.join(root, "renders_fast"),
+                                  True, views, device)
+    exact, exact_launches = run_cli(
+        cfg_path, os.path.join(root, "renders_exact"), False, views, device)
+    check(abs(exact["psnr"] - trainer_psnr) < 1e-3,
+          f"{label}: render_cli PSNR {exact['psnr']} vs the trainer's "
+          f"{trainer_psnr}")
+
+    evaluator = Evaluator(load_config(cfg_path), device=device, verbose=False)
+    evaluator.load(os.path.join(model_dir, checkpoint))
+    cams = evaluator.scene.test_cameras
+    view_diffs = [dict(view=i, **fast_vs_exact(evaluator, cam,
+                                               f"{label} view {i}")[0])
+                  for i, cam in enumerate(cams)]
+    packed, bins, rec = infer_inputs(evaluator, cams[0])
+    k3 = k3_row(packed, bins, rec, evaluator.opts, evaluator.n_active,
+                f"{label} view 0")
+    return dict(
+        render_cli=dict(
+            fast=dict(psnr=fast["psnr"], ssim=fast["ssim"],
+                      msssim=fast["msssim"], launches=fast_launches,
+                      render_ms=[v["render_ms"] for v in fast["views"]]),
+            exact=dict(psnr=exact["psnr"], ssim=exact["ssim"],
+                       msssim=exact["msssim"], launches=exact_launches,
+                       render_ms=[v["render_ms"] for v in exact["views"]])),
+        fast_vs_exact=view_diffs,
+        k3={key: k3[key] for key in ("num_rendered", "accum_err",
+                                     "t_final_err", "k3_vs_k1", "ms",
+                                     "k1_ms", "plain_ms", "bound_ms")})
+
+
+def run_training(argv, check_step, label):
+    """The main path of a training phase: `fourdgs_tpu_torch.train.main`
+    on `argv` with `observed_trainer` swapped in, the launch counts zeroed
+    just before and read just after: (the trainer, the counts, seconds)."""
+    from fourdgs_tpu_torch import train as train_cli
+    from fourdgs_tpu_torch.engine import trainer as trainer_mod
+
+    base, made = trainer_mod.Trainer, []
+    trainer_mod.Trainer = observed_trainer(base, check_step, made)
+    zero_launches()
+    t1 = time.perf_counter()
+    try:
+        rc = train_cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.Trainer = base
+    train_s = time.perf_counter() - t1
+    launches = read_launches()
+    check(rc == 0, f"{label}: exit code {rc}")
+    check(len(made) == 1, f"{label}: no Trainer made")
+    return made[0], launches, train_s
+
+
+def check_training(obs, launches, iterations, batch, event_its, label):
+    """A finite loss and no dropped instance on every step, the densify
+    events where expected, and exactly `batch` K2 per step and `batch` K1
+    per step plus one per evaluation view."""
+    steps = obs["steps"]
+    check(len(steps) == iterations, f"{label}: {len(steps)} steps")
+    for st in steps:
+        check(np.isfinite(st["loss"]), f"{label} it {st['it']}: loss "
+              f"{st['loss']}")
+        check(st["dropped"] == 0, f"{label} it {st['it']}: instances "
+              "dropped")
+    its = [e["it"] for e in obs["events"]]
+    check(its == event_its, f"{label}: densify events at {its}")
+    want = dict(k1=batch * iterations + obs["views"],
+                k2=batch * iterations, k3=0)
+    check(launches == want, f"{label}: launches {launches}, expected "
+          f"{want} ({obs['views']} evaluation views)")
+
+
+def median_step_ms(steps, lo, hi):
+    return float(np.median([st["ms"] for st in steps
+                            if lo <= st["it"] < hi]))
+
+
 def train_lego_phase(device, p=100_000, hw=800, iterations=300, extra=()):
     """The lego config trained end to end on the card from a scene on
     disk through `fourdgs_tpu_torch.train.main` (K1 forward, K2 backward),
@@ -1398,11 +1578,6 @@ def train_lego_phase(device, p=100_000, hw=800, iterations=300, extra=()):
     `p` and `hw`: the scene's cloud and image size; `extra`: more
     --override items (a rehearsal's smaller cloud). Returns the training's
     launch counts and render_cli --fast's K3 launches."""
-    import yaml
-
-    from fourdgs_tpu_torch import train as train_cli
-    from fourdgs_tpu_torch.engine import trainer as trainer_mod
-
     t0 = time.perf_counter()
     root = os.path.join(ROOT, "build", "train_lego")
     shutil.rmtree(root, ignore_errors=True)
@@ -1415,142 +1590,329 @@ def train_lego_phase(device, p=100_000, hw=800, iterations=300, extra=()):
     first_event = 200
     setup_s = time.perf_counter() - t0
 
-    base, made = trainer_mod.Trainer, []
-    trainer_mod.Trainer = observed_trainer(base, first_event + 1, made)
-    # The main path: counts zeroed just before, read just after.
-    zero_launches()
-    t1 = time.perf_counter()
-    try:
-        rc = train_cli.main(argv)
-        torch.cuda.synchronize()
-    finally:
-        trainer_mod.Trainer = base
-    train_s = time.perf_counter() - t1
-    launches = read_launches()
-    check(rc == 0, f"train_lego: exit code {rc}")
-    check(len(made) == 1, "train_lego: no Trainer made")
-    obs = made[0].obs
+    trainer, launches, train_s = run_training(argv, first_event + 1,
+                                              "train_lego")
+    obs = trainer.obs
 
-    steps = obs["steps"]
-    check(len(steps) == iterations, f"train_lego: {len(steps)} steps")
-    for s in steps:
-        check(np.isfinite(s["loss"]), f"train_lego it {s['it']}: loss "
-              f"{s['loss']}")
-        check(s["dropped"] == 0, f"train_lego it {s['it']}: instances "
-              "dropped")
-    events = obs["events"]
-    check([e["it"] for e in events] == [200, 300],
-          f"train_lego: densify events at {[e['it'] for e in events]}")
+    check_training(obs, launches, iterations, 2, [200, 300], "train_lego")
+    steps, events = obs["steps"], obs["events"]
     sizes = [obs["initial"]] + [e["n_active"] for e in events]
     check(all(a != b for a, b in zip(sizes, sizes[1:])),
           f"train_lego: n_active {sizes} unchanged at an event")
-    want = dict(k1=2 * iterations + obs["views"], k2=2 * iterations, k3=0)
-    check(launches == want, f"train_lego: launches {launches}, expected "
-          f"{want} ({obs['views']} evaluation views)")
     before, after = obs["evaluations"][0], obs["evaluations"][-1]
     check(before["step"] == 0 and after["step"] == iterations
           and after["psnr"] > before["psnr"],
           f"train_lego: test PSNR {before['psnr']} -> {after['psnr']}")
 
     # K1 and K2 against their plain versions on the first step of the
-    # grown cloud.
-    for key in ("k1", "k2"):
-        check(len(obs[key]) == 2, f"train_lego: captured {len(obs[key])} "
-              f"{key.upper()} calls of step {first_event + 1}")
-    k1_rows = []
-    for cam_i, (args, k) in enumerate(obs["k1"]):
-        check(args[0].shape[0] == events[0]["n_active"],
-              "train_lego: K1's step did not see the grown cloud")
-        pairs = {}
-        report = errors(k, blend.blend_forward_plain(*args,
-                                                     pair_counts=pairs))
-        check_report(report, f"train_lego camera {cam_i}: K1")
-        bins = types.SimpleNamespace(tile_start=args[2],
-                                     num_rendered=args[1].numel())
-        bound, bound_by, ops = forward_bound_ms(pairs, bins,
-                                                args[0].shape[0])
-        k1_rows.append(dict(
-            camera=cam_i, step=first_event + 1, gaussians=args[0].shape[0],
-            instances=int(args[1].numel()), bound_ms=bound,
-            bound_by=bound_by, operations=ops,
-            ms=time_call(lambda: blend.launch_forward(*args), 20),
-            plain_ms=time_call(lambda: blend.blend_forward_plain(*args), 1),
-            **report))
-    k2_rows = []
-    for cam_i, (args, k) in enumerate(obs["k2"]):
-        check(args[0].shape[0] == events[0]["n_active"],
-              "train_lego: K2's step did not see the grown cloud")
-        pairs = {}
-        pl = blend.blend_backward_plain(*args, pair_counts=pairs)
-        err = grad_error(k, pl)
-        check(err <= TOL_GRAD, f"train_lego camera {cam_i}: K2 gradient "
-              f"error {err} vs the plain version")
-        bound, bound_by, ops = backward_bound_ms(pairs, args)
-        k2_rows.append(dict(
-            camera=cam_i, step=first_event + 1, gaussians=args[0].shape[0],
-            grad_err=err, abs_err=float((k - pl).abs().max()),
-            instances=int(args[1].numel()), bound_ms=bound,
-            bound_by=bound_by, operations=ops,
-            ms=time_call(lambda: blend.launch_backward(*args), 20),
-            plain_ms=time_call(lambda: blend.blend_backward_plain(*args),
-                               1)))
-
-    # The checkpoint through render_cli on the 4 val views (lego's test
-    # split): --fast (1 K3 per view) and exact (1 K1 per view).
-    with open(lego_yaml) as f:
-        cfg = yaml.safe_load(f)
-    cfg["ModelParams"].update(source_path=source, model_path=model_dir)
-    cfg_path = os.path.join(root, "lego_render.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(cfg, f)
-    fast, fast_launches = run_cli(cfg_path, os.path.join(root, "renders_fast"),
-                                  True, 4, device)
-    exact, exact_launches = run_cli(
-        cfg_path, os.path.join(root, "renders_exact"), False, 4, device)
-    check(abs(exact["psnr"] - after["psnr"]) < 1e-3,
-          f"train_lego: render_cli PSNR {exact['psnr']} vs the trainer's "
-          f"{after['psnr']}")
-
-    # The checkpoint's views fast against exact, and K3 against its plain
-    # version on the first view's inputs.
-    evaluator = Evaluator(load_config(cfg_path), device=device, verbose=False)
-    evaluator.load(os.path.join(model_dir, f"chkpnt{iterations}.pkl"))
-    cams = evaluator.scene.test_cameras
-    view_diffs = [dict(view=i, **fast_vs_exact(evaluator, cam,
-                                               f"train_lego view {i}")[0])
-                  for i, cam in enumerate(cams)]
-    packed, bins, rec = infer_inputs(evaluator, cams[0])
-    k3 = k3_row(packed, bins, rec, evaluator.opts, evaluator.n_active,
-                "train_lego view 0")
-
-    def median_ms(lo, hi):
-        return float(np.median([s["ms"] for s in steps if lo <= s["it"] < hi]))
+    # grown cloud; the checkpoint through render_cli on the 4 val views
+    # (lego's test split).
+    k1_rows, k2_rows = step_kernel_rows(obs, first_event + 1,
+                                        events[0]["n_active"], 2,
+                                        "train_lego")
+    renders = render_checkpoint(root, lego_yaml, source, model_dir,
+                                f"chkpnt{iterations}.pkl", 4, after["psnr"],
+                                "train_lego", device)
 
     emit(dict(
         phase="train_lego_densify", config="configs/dnerf/lego.yaml",
         cuts=LEGO_TRAIN_CUTS + [f"scene: 16 train + 4 val {hw}x{hw} K1 "
                                 "renders of the bench cloud, no "
                                 "points3d.ply"],
-        height=made[0].opts.height, width=made[0].opts.width,
+        height=trainer.opts.height, width=trainer.opts.width,
         iterations=iterations, n_active_initial=obs["initial"],
-        events=events, step_ms_median_before_first_event=median_ms(2, 200),
-        step_ms_median_after_first_event=median_ms(202, 300),
+        events=events,
+        step_ms_median_before_first_event=median_step_ms(steps, 2, 200),
+        step_ms_median_after_first_event=median_step_ms(steps, 202, 300),
         steps_per_s=iterations / train_s, train_s=train_s,
         evaluate=[dict(step=e["step"], ms=e["ms"], psnr=e["psnr"])
                   for e in obs["evaluations"]],
         psnr_before=before["psnr"], psnr_after=after["psnr"],
         loss_first=steps[0]["loss"], loss_last=steps[-1]["loss"],
         k1=k1_rows, k2=k2_rows, launches=launches,
-        evaluation_views=obs["views"],
-        render_cli=dict(fast=dict(psnr=fast["psnr"], launches=fast_launches),
-                        exact=dict(psnr=exact["psnr"],
-                                   launches=exact_launches)),
-        fast_vs_exact=view_diffs,
-        k3={key: k3[key] for key in ("num_rendered", "accum_err",
-                                     "t_final_err", "k3_vs_k1", "ms",
-                                     "k1_ms", "plain_ms", "bound_ms")},
+        evaluation_views=obs["views"], **renders,
         setup_s=setup_s, seconds=time.perf_counter() - t0))
-    return launches, fast_launches["k3"]
+    return launches, renders["render_cli"]["fast"]["launches"]["k3"]
+
+
+# --------------------------------------------------------------------------
+# The configs/synth scenarios: datasets generated on the card, trained as
+# the configs are
+# --------------------------------------------------------------------------
+
+# The only changes to configs/synth/quality.yaml (besides the scene and
+# output paths): the first 1000 of its 10k iterations, every schedule kept.
+SYNTH_QUALITY_CUTS = ["optimization.iterations=1000",
+                      "test_iterations=[500,1000]", "save_iterations=[1000]"]
+# configs/synth/dynerf_quality.yaml: 200 iterations, one densify event at
+# 200; the dataset cut to 12 frames per camera and 4 test frames.
+SYNTH_DYNERF_CUTS = ["optimization.iterations=200",
+                     "optimization.densify_from_iter=100",
+                     "optimization.densification_interval=100",
+                     "optimization.densify_until_iter=201",
+                     "test_iterations=[200]", "save_iterations=[200]"]
+SYNTH_DYNERF_DATA = ["--n_frames", "12", "--n_test", "4"]
+# The TensorBoard scalars the trainer writes at step 1 and every 10 steps
+# (the rigid loss's only where it is on).
+TB_STEP_TAGS = ("train_loss_patches/l1_loss", "train_loss_patches/ssim_loss",
+                "train_loss_patches/total_loss", "total_points", "iter_time")
+PSNR_SYNTH_QUALITY_1000 = 26.0   # JAX record at 1000: 29.13 dB
+# The ground-truth oracle on the card against the CPU, as
+# tests/test_torch_synth.py holds the CPU's against JAX.
+TOL_ORACLE = 1e-5
+
+
+def oracle_card_vs_cpu(device):
+    """`synth.render_frames` on the card with TF32 allowed by the caller
+    (the generator turns it off itself) against the CPU, on the tests'
+    frames: 2 poses at 48x48, points_scale 0.05, white and black
+    backgrounds. The largest colour or alpha difference, held to
+    TOL_ORACLE."""
+    from fourdgs_tpu_torch.data import synth
+
+    scene = synth.make_scene(points_scale=0.05, seed=0)
+    eyes, times = synth.sample_train_poses(2, 0)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        err = 0.0
+        for white in (True, False):
+            card, cpu = (list(synth.render_frames(
+                scene, eyes, times, 48, 48, white_background=white,
+                device=dev)) for dev in (device, "cpu"))
+            for (c1, a1), (c2, a2) in zip(card, cpu, strict=True):
+                err = max(err, float(np.abs(c1 - c2).max()),
+                          float(np.abs(a1 - a2).max()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    check(err <= TOL_ORACLE, f"synth oracle: card vs CPU {err} > "
+          f"{TOL_ORACLE}")
+    return err
+
+
+def generate(argv, label):
+    """`python -m fourdgs_tpu_torch.gen_synth_dataset` on `argv` into a
+    fresh directory: (seconds, frames, ms per frame)."""
+    from fourdgs_tpu_torch import gen_synth_dataset
+
+    out = argv[argv.index("--out") + 1]
+    shutil.rmtree(out, ignore_errors=True)
+    t1 = time.perf_counter()
+    check(gen_synth_dataset.main(argv) == 0, f"{label}: generator failed")
+    seconds = time.perf_counter() - t1
+    frames = 0
+    for split in ("train", "test"):
+        with open(os.path.join(out, f"transforms_{split}.json")) as f:
+            frames += len(json.load(f)["frames"])
+    return seconds, frames, seconds / frames * 1e3
+
+
+def staged_train_steps(trainer, n=3):
+    """`n` training steps from the trainer's state on its first batch, in
+    stages (CUDA events at train_step's marks): the medians by stage, ms.
+    Not on the main path: run after its counts are read."""
+    idx = list(range(trainer.cfg.batch_size))
+    cams, gt, alpha, intr = trainer._batch_arrays(idx)
+    if alpha is None:                      # the GT cache holds the images
+        sel = torch.as_tensor(idx, device=trainer.device)
+        gt, alpha = trainer._gt_cache[0][sel], trainer._gt_cache[1][sel]
+    splits = []
+    for _ in range(n):
+        total, parts = staged(lambda mark: train.train_step(
+            trainer.gauss, trainer.step + 1, cams, gt, alpha, trainer.bg,
+            trainer.step_cfg, trainer.opts, env=trainer.env,
+            intrinsics=intr, mark=mark))
+        splits.append(dict(total=total, **step_split(parts)))
+    return {k: float(np.median([sp[k] for sp in splits]))
+            for k in splits[0]}
+
+
+def train_synth_quality_phase(device, size=400, n_train=120, n_test=20,
+                              points_scale=1.0, extra=()):
+    """configs/synth/quality.yaml, the north-star scenario: its dataset
+    generated on the card (`python -m fourdgs_tpu_torch.gen_synth_dataset`
+    at full size), then its first 1000 iterations trained through
+    `fourdgs_tpu_torch.train.main` with every schedule kept (the
+    white-background opacity reset at 500, densify events at 600-1000),
+    evaluated at 500 and 1000 with TensorBoard events; K1 and K2 held to
+    their plain versions on the cameras of step 601; chkpnt1000.pkl
+    through render_cli. The arguments cut the scene for a rehearsal.
+    Returns the training's launch counts and render_cli --fast's K3
+    launches."""
+    t0 = time.perf_counter()
+    oracle_err = oracle_card_vs_cpu(device)
+    root = os.path.join(ROOT, "build", "synth_quality")
+    shutil.rmtree(root, ignore_errors=True)
+    source, model_dir = os.path.join(root, "data"), os.path.join(root, "model")
+    gen_s, frames, frame_ms = generate(
+        ["--out", source, "--n_train", str(n_train), "--n_test", str(n_test),
+         "--size", str(size), "--points_scale", str(points_scale),
+         "--seed", "0", "--device", str(device)], "train_synth_quality")
+    config = os.path.join(ROOT, "configs", "synth", "quality.yaml")
+    argv = ["--config", config, "--device", str(device), "--quiet",
+            "--override", f"model.source_path={source}",
+            f"model.model_path={model_dir}"] + SYNTH_QUALITY_CUTS + list(extra)
+    iterations, check_step = 1000, 601
+
+    trainer, launches, train_s = run_training(argv, check_step,
+                                              "train_synth_quality")
+    obs = trainer.obs
+    check_training(obs, launches, iterations, 2, [600, 700, 800, 900, 1000],
+                   "train_synth_quality")
+    evals = {e["step"]: e for e in obs["evaluations"]}
+    check(500 in evals and 1000 in evals,
+          f"train_synth_quality: evaluations at {sorted(evals)}")
+    psnr_1000 = evals[1000]["psnr"]
+    check(psnr_1000 >= PSNR_SYNTH_QUALITY_1000,
+          f"train_synth_quality: held-out PSNR {psnr_1000} at 1000 < "
+          f"{PSNR_SYNTH_QUALITY_1000}")
+
+    # TensorBoard: the step scalars at 1 and every 10, the evaluation's
+    # scalars, histogram and panels at 500 and 1000.
+    (events_file,) = [os.path.join(model_dir, f) for f in
+                      os.listdir(model_dir) if f.startswith("events.out")]
+    tags = read_tags(events_file)
+    for tag in TB_STEP_TAGS:
+        check(tags.get(tag) == [1] + list(range(10, iterations + 1, 10)),
+              f"train_synth_quality: TensorBoard {tag} at {tags.get(tag)}")
+    eval_tags = ["scene/opacity_histogram"] + [
+        f"{split}/loss_viewpoint - {m}" for split in ("test", "train")
+        for m in ("psnr", "ssim")] + [
+        f"{split}_view_{i}/gt_vs_render" for split in ("test", "train")
+        for i in range(min(5, n_test if split == "test" else 5))]
+    for tag in eval_tags:
+        check({500, 1000} <= set(tags.get(tag, ())),
+              f"train_synth_quality: TensorBoard {tag} at {tags.get(tag)}")
+
+    first_event = obs["events"][0]
+    k1_rows, k2_rows = step_kernel_rows(obs, check_step,
+                                        first_event["n_active"], 2,
+                                        "train_synth_quality")
+    renders = render_checkpoint(
+        root, config, source, model_dir, f"chkpnt{iterations}.pkl", n_test,
+        psnr_1000, "train_synth_quality", device)
+    stages = staged_train_steps(trainer)
+    steps = obs["steps"]
+    emit(dict(
+        phase="train_synth_quality", config="configs/synth/quality.yaml",
+        cuts=SYNTH_QUALITY_CUTS + list(extra),
+        dataset=dict(frames=frames, width=size, height=size,
+                     points_scale=points_scale, seconds=gen_s,
+                     ms_per_frame=frame_ms),
+        oracle_card_vs_cpu_max_abs=oracle_err,
+        iterations=iterations, n_active_initial=obs["initial"],
+        events=obs["events"],
+        n_active_after_events=[e["n_active"] for e in obs["events"]],
+        ms_per_densify_event=[e["ms"] for e in obs["events"]],
+        step_ms_median_before_first_event=median_step_ms(steps, 2, 600),
+        step_ms_median_after_first_event=median_step_ms(steps, 602,
+                                                        iterations + 1),
+        staged_step_ms_median=stages,
+        steps_per_s=iterations / train_s, train_s=train_s,
+        evaluate=[dict(step=e["step"], seconds=e["ms"] / 1e3,
+                       psnr=e["psnr"], splits=e["splits"])
+                  for e in obs["evaluations"]],
+        psnr_ssim_at=dict((str(it), evals[it]["splits"]["test"])
+                          for it in (0, 500, 1000) if it in evals),
+        tensorboard=dict(file=os.path.basename(events_file),
+                         tags=sorted(tags)),
+        k1=k1_rows, k2=k2_rows, launches=launches,
+        evaluation_views=obs["views"], **renders,
+        seconds=time.perf_counter() - t0))
+    return launches, renders["render_cli"]["fast"]["launches"]["k3"]
+
+
+def gt_cache_expected(trainer):
+    """The JAX trainer's rule (fourdgs_tpu/engine/trainer.py:356-372) for
+    holding the train images on the device: frames of one size, at most
+    cfg.gt_cache_mb of f32 rgb + alpha; the dataloader flag plays no part."""
+    cams = trainer.scene.train_cameras
+    same = all((c.width, c.height) == (cams[0].width, cams[0].height)
+               for c in cams)
+    mb = len(cams) * cams[0].height * cams[0].width * 16 / 1e6
+    return bool(cams) and same and 0 < trainer.cfg.gt_cache_mb and \
+        mb <= trainer.cfg.gt_cache_mb, mb
+
+
+def train_synth_dynerf_phase(device, size=400, n_cams=15, data=(),
+                             extra=()):
+    """configs/synth/dynerf_quality.yaml: the DyNeRF-modality dataset
+    generated on the card (a rig of 15 cameras, camera 0 held out, RGBA
+    frames over a procedural sky), then 200 iterations trained as the
+    config is (the lazy dataloader, batch 4, the 128x128 env map trained
+    from 0, the opacity-mask, rigid and motion losses together), one
+    densify event at 200 and an evaluation at 200; K1 and K2 held to their
+    plain versions on the four cameras of step 101. `data` and `extra`: a
+    rehearsal's cuts. Returns the training's launch counts."""
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "synth_dynerf")
+    shutil.rmtree(root, ignore_errors=True)
+    source, model_dir = os.path.join(root, "data"), os.path.join(root, "model")
+    gen_s, frames, frame_ms = generate(
+        ["--dynerf", "--out", source, "--n_cams", str(n_cams),
+         "--size", str(size), "--device", str(device),
+         *SYNTH_DYNERF_DATA, *data], "train_synth_dynerf")
+    config = os.path.join(ROOT, "configs", "synth", "dynerf_quality.yaml")
+    argv = ["--config", config, "--device", str(device), "--quiet",
+            "--override", f"model.source_path={source}",
+            f"model.model_path={model_dir}"] + SYNTH_DYNERF_CUTS + list(extra)
+    # Step 101: inside the run, a step with no event before it.
+    iterations, check_step = 200, 101
+
+    trainer, launches, train_s = run_training(argv, check_step,
+                                              "train_synth_dynerf")
+    obs = trainer.obs
+    check(trainer.cfg.model.dataloader and trainer.cfg.batch_size == 4
+          and trainer.cfg.pipeline.env_map_res == 128,
+          "train_synth_dynerf: not the config's dataloader, batch, env map")
+    check_training(obs, launches, iterations, 4, [200], "train_synth_dynerf")
+    before, after = obs["evaluations"][0], obs["evaluations"][-1]
+    check(before["step"] == 0 and after["step"] == iterations
+          and after["psnr"] > before["psnr"],
+          f"train_synth_dynerf: test PSNR {before['psnr']} -> "
+          f"{after['psnr']}")
+    env_moved = float(trainer.env.texture.abs().max())
+    check(env_moved > 0, "train_synth_dynerf: the env texture did not move")
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    # Both terms positive on every logged step, and at the last one above
+    # the 1e-12 floor of their zero-safe norms (the velocities start at 0).
+    terms = [(r["rigid"], r["motion"]) for r in rows if "loss" in r]
+    check(terms and all(rg > 0 and mo > 0 for rg, mo in terms)
+          and min(terms[-1]) > 1e-11,
+          f"train_synth_dynerf: rigid and motion terms {terms[0]} -> "
+          f"{terms[-1]} in metrics.jsonl")
+    cached, cache_mb = gt_cache_expected(trainer)
+    check((trainer._gt_cache is not None) == cached,
+          f"train_synth_dynerf: GT cache {trainer._gt_cache is not None}, "
+          f"the JAX trainer's rule says {cached}")
+    k1_rows, k2_rows = step_kernel_rows(obs, check_step, obs["initial"], 4,
+                                        "train_synth_dynerf")
+    stages = staged_train_steps(trainer)
+    steps = obs["steps"]
+    emit(dict(
+        phase="train_synth_dynerf",
+        config="configs/synth/dynerf_quality.yaml",
+        cuts=SYNTH_DYNERF_CUTS + SYNTH_DYNERF_DATA + list(data) + list(extra),
+        dataset=dict(frames=frames, width=size, height=size, cameras=n_cams,
+                     seconds=gen_s, ms_per_frame=frame_ms),
+        train_frames=len(trainer.scene.train_cameras),
+        gt_cache=dict(on_device=trainer._gt_cache is not None, mb=cache_mb),
+        iterations=iterations, batch=4, n_active_initial=obs["initial"],
+        events=obs["events"],
+        step_ms_median=median_step_ms(steps, 2, iterations + 1),
+        staged_step_ms_median=stages,
+        knn_share=stages["knn"] / stages["total"],
+        steps_per_s=iterations / train_s, train_s=train_s,
+        evaluate=[dict(step=e["step"], seconds=e["ms"] / 1e3,
+                       psnr=e["psnr"], splits=e["splits"])
+                  for e in obs["evaluations"]],
+        psnr_before=before["psnr"], psnr_after=after["psnr"],
+        env_texture_max_abs=env_moved,
+        rigid_motion_first_last=[terms[0], terms[-1]],
+        k1=k1_rows, k2=k2_rows, launches=launches, evaluation_views=obs["views"],
+        seconds=time.perf_counter() - t0))
+    return launches
 
 
 def main() -> int:
@@ -1600,8 +1962,12 @@ def main() -> int:
 
     # 10. the lego config trained end to end from a scene on disk
     lego_launches, lego_k3 = train_lego_phase(device)
+    # 11. the configs/synth scenarios: datasets generated on the card, then
+    # synth/quality.yaml's first 1000 iterations and dynerf_quality.yaml
+    synth_launches, synth_k3 = train_synth_quality_phase(device)
+    dynerf_launches = train_synth_dynerf_phase(device)
 
-    # 11. kernel summary: K1 at the 800x800 requests (means over the four),
+    # 12. kernel summary: K1 at the 800x800 requests (means over the four),
     # K2 at the first training step's two cameras (means over the two), K3
     # at the first 800x800 evaluation view.
     mean = lambda rs, key: float(np.mean([r[key] for r in rs]))  # noqa: E731
@@ -1619,7 +1985,9 @@ def main() -> int:
         "launches": train_launches["k1"],
         "launches_by_path": {"serve_800x800": launches,
                              "train_800x800": train_launches["k1"],
-                             "train_lego_densify": lego_launches["k1"]},
+                             "train_lego_densify": lego_launches["k1"],
+                             "train_synth_quality": synth_launches["k1"],
+                             "train_synth_dynerf": dynerf_launches["k1"]},
         "max_abs_err": max(max(r["accum_err"], r["t_final_err"])
                            for r in rows),
         "ms": mean(rows, "kernel_ms"),
@@ -1634,7 +2002,9 @@ def main() -> int:
         "replaces": "fourdgs_tpu/ops/pallas_blend.py:606",
         "launches": train_launches["k2"],
         "launches_by_path": {"train_800x800": train_launches["k2"],
-                             "train_lego_densify": lego_launches["k2"]},
+                             "train_lego_densify": lego_launches["k2"],
+                             "train_synth_quality": synth_launches["k2"],
+                             "train_synth_dynerf": dynerf_launches["k2"]},
         "max_abs_err": max(r["abs_err"] for r in k2_rows),
         # |k - p| / max(|p|.max(), 1e-3) per record column, held to 2e-4
         "max_scaled_err": max(r["grad_err"] for r in k2_rows),
@@ -1652,7 +2022,8 @@ def main() -> int:
         "launches_by_path": {"eval_800x800": eval_k3,
                              "eval_1352x1014_env": env_k3,
                              "viewer": viewer_k3,
-                             "train_lego_densify_render_cli": lego_k3},
+                             "train_lego_densify_render_cli": lego_k3,
+                             "train_synth_quality_render_cli": synth_k3},
         "max_abs_err": max(k3_row_800["accum_err"],
                            k3_row_800["t_final_err"]),
         "ms": k3_row_800["ms"],

@@ -128,6 +128,9 @@ class Evaluator:
         self.last_counts = None
         # Mean metrics per split of the last `evaluate`.
         self.last_eval = {}
+        # TensorBoard writer (`utils/tb_writer.py`) that `evaluate` reports
+        # to; the Trainer opens one in its model dir.
+        self.tb = None
 
     def log(self, msg: str):
         if self.verbose:
@@ -135,17 +138,35 @@ class Evaluator:
 
     def load(self, path: str) -> dict:
         """Load a `.pkl` checkpoint written by this package or by the JAX
-        package onto the evaluator's device. Returns the checkpoint's
-        `extra` dict."""
+        package, or a reference `.pth`, onto the evaluator's device.
+        Returns the checkpoint's `extra` dict (empty for a `.pth`)."""
         if path.endswith(".pth"):
-            raise NotImplementedError(
-                "reference .pth checkpoints need models/torch_import.py, "
-                "which is not ported yet (ROADMAP.md, Queue 1 item 8)")
+            self._load_reference_pth(path)
+            return {}
         self.gauss, self.env, self.step, extra = ckpt_lib.load_checkpoint(
             path, device=self.device)
         self.n_active = int(self.gauss.n_active)
         self.best_psnr = extra.get("best_psnr", 0.0)
         return extra
+
+    def _load_reference_pth(self, path: str):
+        """A reference torch checkpoint (`train.py:50-52` restore
+        semantics): params, densify statistics, Adam moments and
+        iteration; the env map's texture when the config has one."""
+        from ..models.torch_import import import_reference_pth
+
+        dur = self.cfg.time_duration[1] - self.cfg.time_duration[0]
+        self.gauss, meta = import_reference_pth(
+            path, duration=dur, with_optimizer=True, device=self.device)
+        self.n_active = int(self.gauss.n_active)
+        self.step = meta["iteration"]
+        if meta["env_map"] is not None and self.cfg.pipeline.env_map_res > 0:
+            texture = torch.as_tensor(meta["env_map"], device=self.device)
+            self.env = envmap_lib.init_envmap(
+                texture.shape[0], device=self.device)._replace(
+                    texture=texture)
+        self.log(f"resumed reference checkpoint {path} "
+                 f"(iter {self.step}, {self.n_active} gaussians)")
 
     @torch.no_grad()
     def _render_eval(self, cam: CameraArrays, intr: torch.Tensor,
@@ -280,12 +301,22 @@ class Evaluator:
                 msg += f" ms-ssim {means['msssim']:.4f}"
             self.log(msg + f" ({len(cams)} cams)")
             self.last_eval[tag] = means
+            if self.tb is not None:
+                # Reference `train.py:326-336` viewpoint tags.
+                self.tb.add_scalar(f"{tag}/loss_viewpoint - psnr",
+                                   means["psnr"], self.step)
+                self.tb.add_scalar(f"{tag}/loss_viewpoint - ssim",
+                                   means["ssim"], self.step)
             return means["psnr"]
 
         cams = self.scene.test_cameras
         if max_cameras:
             cams = cams[:max_cameras]
         mean_psnr = run(cams, "test")
+        if self.tb is not None:
+            logit = self.gauss.params.opacity[: self.n_active, 0]
+            opa = 1.0 / (1.0 + np.exp(-logit.cpu().numpy()))
+            self.tb.add_histogram("scene/opacity_histogram", opa, self.step)
         if train_views:
             # Reference samples train views idx % n for idx in 5..25 step 5
             # (`train.py:304`).
@@ -297,7 +328,8 @@ class Evaluator:
     def _save_eval_panel(self, tag: str, idx: int, cam: Camera, gt, color,
                          depth, alpha):
         """2x2 gt|render / alpha|depth-colormap grid PNG (the reference's
-        tensorboard image grid, `train.py:320-325`, as files)."""
+        tensorboard image grid, `train.py:320-325`), as a file and, with a
+        TensorBoard writer, as an image event."""
         from PIL import Image
 
         from ..utils.image import easy_cmap
@@ -307,8 +339,12 @@ class Evaluator:
         top = torch.cat(panels[:2], dim=1)
         bot = torch.cat(panels[2:], dim=1)
         grid = (torch.cat([top, bot], dim=0) * 255).to(torch.uint8)
+        grid = grid.cpu().numpy()
+        if self.tb is not None:
+            self.tb.add_image(f"{tag}_view_{idx}/gt_vs_render", grid,
+                              self.step)
         out = os.path.join(self.cfg.model.model_path, "eval")
         os.makedirs(out, exist_ok=True)
         name = cam.image_name or str(idx)
-        Image.fromarray(grid.cpu().numpy()).save(
+        Image.fromarray(grid).save(
             os.path.join(out, f"it{self.step:06d}_{tag}_{name}.png"))

@@ -31,6 +31,7 @@ from ..models.gaussians import (AdamState, GaussianParams, GaussianState,
                                 init_from_pcd)
 from ..ops.sh import num_sh_channels
 from ..utils.metrics_log import MetricsLogger
+from ..utils.tb_writer import TBWriter
 from . import checkpoint as ckpt_lib
 from .evaluator import Evaluator, camera_intrinsics, fetch_gt
 from .step import StepConfig, train_step
@@ -109,8 +110,12 @@ class Trainer(Evaluator):
         self._saves = []
         self._gt_cache = None      # (images, alphas) on the device
         self.metrics_log = MetricsLogger(cfg.model.model_path)
-
+        # TensorBoard event file in the model dir (the reference's
+        # SummaryWriter(args.model_path), `train.py:255-263`): the step
+        # scalars here, the evaluation scalars, histogram and panels in
+        # `Evaluator.evaluate`.
         if cfg.model.model_path:
+            self.tb = TBWriter(cfg.model.model_path)
             self._dump_scene_artifacts()
         if cfg.model.loaded_pth:
             self._load_initial_cloud(cfg.model.loaded_pth)
@@ -119,13 +124,15 @@ class Trainer(Evaluator):
 
     def close(self):
         """Join the checkpoint writes, stop both worker pools and close
-        metrics.jsonl."""
+        metrics.jsonl and the TensorBoard event file."""
         try:
             self.wait_for_saves()
         finally:
             self._io_pool.shutdown(cancel_futures=True)
             self._ckpt_pool.shutdown()
             self.metrics_log.close()
+            if self.tb is not None:
+                self.tb.close()
 
     def __enter__(self):
         return self
@@ -139,13 +146,16 @@ class Trainer(Evaluator):
 
     def _load_initial_cloud(self, path: str):
         """Parameters from a saved cloud (reference --loaded_pth →
-        create_from_pth, `gaussian_model.py:302-329`): a gaussian PLY or a
-        checkpoint; the optimizer starts fresh."""
+        create_from_pth, `gaussian_model.py:302-329`): a gaussian PLY, a
+        reference torch checkpoint or a checkpoint; the optimizer starts
+        fresh."""
         if path.endswith(".pth"):
-            raise NotImplementedError(
-                "reference .pth files need models/torch_import.py, which "
-                "is not ported yet (ROADMAP.md, Queue 1 item 8)")
-        if path.endswith(".ply"):
+            from ..models.torch_import import import_reference_pth
+            dur = self.cfg.time_duration[1] - self.cfg.time_duration[0]
+            self._set_cloud(import_reference_pth(
+                path, duration=dur, with_optimizer=False,
+                device=self.device)[0])
+        elif path.endswith(".ply"):
             from ..models.ply_io import import_gaussians_ply
             self._set_cloud(import_gaussians_ply(path, device=self.device))
         else:
@@ -209,7 +219,9 @@ class Trainer(Evaluator):
         package's trainer: params, Adam, statistics, env map, step,
         best_psnr and the batch-order state; the split noise's generator
         state where this package wrote it (a JAX checkpoint's `jax_key`
-        has no counterpart and is ignored)."""
+        has no counterpart and is ignored). A reference `.pth` gives
+        params, Adam, statistics, iteration and the env map's texture
+        (`Evaluator._load_reference_pth`)."""
         extra = super().load(path)
         self._set_cloud(self.gauss)
         if "np_rng_state" in extra:
@@ -366,6 +378,8 @@ class Trainer(Evaluator):
                     total_points=metrics.n_active,
                     num_rendered=metrics.num_rendered, rigid=metrics.rigid,
                     motion=metrics.motion)
+                if self.tb is not None:
+                    self._tb_step_scalars(it, loss, metrics, t_start)
             if on_step is not None:
                 on_step(it, metrics)
 
@@ -383,6 +397,19 @@ class Trainer(Evaluator):
                           sync=False)
         self.wait_for_saves()
         return self.gauss
+
+    def _tb_step_scalars(self, it: int, loss: float, metrics, t_start):
+        """The reference's step scalars (tag names of `train.py:277-298`);
+        iter_time is the mean ms per iteration since `train` started."""
+        add = self.tb.add_scalar
+        add("train_loss_patches/l1_loss", float(metrics.l1), it)
+        add("train_loss_patches/ssim_loss", float(metrics.ssim_loss), it)
+        add("train_loss_patches/total_loss", loss, it)
+        add("total_points", int(metrics.n_active), it)
+        add("iter_time", (time.perf_counter() - t_start) / max(it, 1)
+            * 1000.0, it)
+        if float(metrics.rigid) > 0:
+            add("train_loss_patches/rigid_loss", float(metrics.rigid), it)
 
     def evaluate(self, max_cameras: Optional[int] = None,
                  with_msssim: bool = False, train_views: int = 0,

@@ -2,7 +2,10 @@
 
 PyTorch counterpart of `fourdgs_tpu/ops/reference_renderer.py`: every
 pixel considers every gaussian in global depth order, masked by the tile
-rect the binner would have used, with no binning and no chunking.
+rect the binner would have used, with no binning. The pixels are blended
+in bands of whole tile rows, one band at a time, each holding at most
+BAND_PAIRS (pixel, gaussian) pairs, so that a full-size frame fits in
+memory; each pixel's arithmetic is the same whatever the band.
 """
 
 from __future__ import annotations
@@ -12,6 +15,17 @@ import torch
 from . import gaussmath as gm
 from . import preprocess as pre
 from .preprocess import TILE, CameraArrays, RenderOptions
+
+# Pixels x gaussians held at once: 2^27 entries, ~0.5 GB per f32 tensor of
+# the blend. A small frame is one band.
+BAND_PAIRS = 1 << 27
+
+
+def band_tile_rows(n_points: int, width: int) -> int:
+    """Tile rows per band: as many as keep a band within BAND_PAIRS pairs,
+    at least one."""
+    wp = -(-width // TILE) * TILE
+    return max(1, BAND_PAIRS // (TILE * wp * max(n_points, 1)))
 
 
 def render_reference(*, means3d, t, scales, scales_t, rotations,
@@ -34,30 +48,36 @@ def render_reference(*, means3d, t, scales, scales_t, rotations,
 
     hp, wp = opts.tiles_y * TILE, opts.tiles_x * TILE
     device = means3d.device
-    ys, xs = torch.meshgrid(torch.arange(hp, device=device),
-                            torch.arange(wp, device=device), indexing="ij")
-    pxf = xs.reshape(-1, 1).to(torch.float32)                  # (N, 1)
-    pyf = ys.reshape(-1, 1).to(torch.float32)
-    tx = (pxf / TILE).to(torch.int32)
-    ty = (pyf / TILE).to(torch.int32)
-    covered = ((rect[:, 0] <= tx) & (tx < rect[:, 2])
-               & (rect[:, 1] <= ty) & (ty < rect[:, 3]) & visible)
-    dx = xy[:, 0] - pxf                                        # (N, P)
-    dy = xy[:, 1] - pyf
-    power = (-0.5 * (conic[:, 0] * dx * dx + conic[:, 2] * dy * dy)
-             - conic[:, 1] * dx * dy)
-    alpha = torch.clamp(opa * torch.exp(power), max=gm.ALPHA_CLAMP)
-    valid = covered & (power <= 0.0) & (alpha >= gm.ALPHA_MIN)
-    a_v = torch.where(valid, alpha, 0.0)
-    q = torch.cumprod(1.0 - a_v, dim=1)
-    fail = valid & (q < gm.T_EPS)
-    dead = torch.cumsum(fail.to(torch.int32), dim=1) > 0
-    used = valid & ~dead
-    a_u = torch.where(used, alpha, 0.0)
-    cu = 1.0 - a_u
-    prod_incl = torch.cumprod(cu, dim=1)
-    w = a_u * prod_incl / cu
-    out = (w @ feat).reshape(hp, wp, -1)[: opts.height, : opts.width]
-    t_fin = prod_incl[:, -1].reshape(hp, wp)[: opts.height, : opts.width]
+    band = band_tile_rows(means3d.shape[0], opts.width) * TILE
+    outs, t_fins = [], []
+    for y0 in range(0, hp, band):
+        ys, xs = torch.meshgrid(
+            torch.arange(y0, min(y0 + band, hp), device=device),
+            torch.arange(wp, device=device), indexing="ij")
+        pxf = xs.reshape(-1, 1).to(torch.float32)              # (N, 1)
+        pyf = ys.reshape(-1, 1).to(torch.float32)
+        tx = (pxf / TILE).to(torch.int32)
+        ty = (pyf / TILE).to(torch.int32)
+        covered = ((rect[:, 0] <= tx) & (tx < rect[:, 2])
+                   & (rect[:, 1] <= ty) & (ty < rect[:, 3]) & visible)
+        dx = xy[:, 0] - pxf                                    # (N, P)
+        dy = xy[:, 1] - pyf
+        power = (-0.5 * (conic[:, 0] * dx * dx + conic[:, 2] * dy * dy)
+                 - conic[:, 1] * dx * dy)
+        alpha = torch.clamp(opa * torch.exp(power), max=gm.ALPHA_CLAMP)
+        valid = covered & (power <= 0.0) & (alpha >= gm.ALPHA_MIN)
+        a_v = torch.where(valid, alpha, 0.0)
+        q = torch.cumprod(1.0 - a_v, dim=1)
+        fail = valid & (q < gm.T_EPS)
+        dead = torch.cumsum(fail.to(torch.int32), dim=1) > 0
+        used = valid & ~dead
+        a_u = torch.where(used, alpha, 0.0)
+        cu = 1.0 - a_u
+        prod_incl = torch.cumprod(cu, dim=1)
+        w = a_u * prod_incl / cu
+        outs.append(w @ feat)
+        t_fins.append(prod_incl[:, -1])
+    out = torch.cat(outs).reshape(hp, wp, -1)[: opts.height, : opts.width]
+    t_fin = torch.cat(t_fins).reshape(hp, wp)[: opts.height, : opts.width]
     color = out[..., 0:3] + t_fin[..., None] * bg
     return color, out[..., 3], out[..., 4:6], 1.0 - t_fin

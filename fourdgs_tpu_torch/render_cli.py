@@ -25,7 +25,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--config", required=True)
     ap.add_argument("--checkpoint", default=None,
                     help="checkpoint path (.pkl, written by this package "
-                         "or by the JAX package)")
+                         "or by the JAX package, or a reference .pth)")
     ap.add_argument("--load_iteration", type=int, default=None,
                     help="resolve chkpnt<N>.pkl from the config's "
                          "model_path; -1 = latest (reference Scene "
@@ -44,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "rounding ~0.4%%; no flow)")
     ap.add_argument("--export_pth", default=None,
                     help="write a reference-format torch checkpoint "
-                         "(not ported yet)")
+                         "(loads in the upstream repo)")
     ap.add_argument("--export_ply", default=None,
                     help="also export the gaussian cloud as PLY")
     ap.add_argument("--video_frames", type=int, default=0,
@@ -69,9 +69,6 @@ def to_u8(img):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.export_pth:
-        return _error("--export_pth needs models/torch_import.py, which is "
-                      "not ported yet (ROADMAP.md, Queue 1)")
 
     import numpy as np
     import torch
@@ -170,6 +167,15 @@ def main(argv=None) -> int:
                              gaussian_dim=cfg.gaussian_dim,
                              rot_4d=cfg.rot_4d)
         print(f"exported cloud -> {args.export_ply}")
+    if args.export_pth:
+        from .models.torch_import import export_reference_pth
+        export_reference_pth(
+            args.export_pth, evaluator.gauss, iteration=int(evaluator.step),
+            rot_4d=cfg.rot_4d,
+            spatial_lr_scale=float(evaluator.scene.radius),
+            env_map=(evaluator.env.texture if evaluator.env is not None
+                     else None))
+        print(f"exported reference checkpoint -> {args.export_pth}")
     return 0
 
 

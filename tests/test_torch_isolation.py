@@ -1,10 +1,11 @@
 """The port stands alone: every module of fourdgs_tpu_torch, and
 chip_smoke.py, import with JAX and the JAX package blocked, and reading a
 checkpoint written by the JAX package (through GaussianRenderer, and
-through a config file, a scene on disk, Evaluator and render_cli) and
-training that scene through the CLI (`fourdgs_tpu_torch.train`) load
-neither. PyYAML and Pillow are imported by the functions that need them,
-not when a module is imported."""
+through a config file, a scene on disk, Evaluator and render_cli),
+training that scene through the CLI (`fourdgs_tpu_torch.train`),
+generating a synthetic dataset and exporting and importing a reference
+.pth load neither. PyYAML and Pillow are imported by the functions that
+need them, not when a module is imported."""
 
 import os
 import subprocess
@@ -76,6 +77,21 @@ rc = train_cli.main(["--config", sys.argv[3], "--device", "cpu", "--quiet",
                      "test_iterations=[]", "save_iterations=[3]"])
 assert rc == 0 and os.path.exists(os.path.join(train_dir, "chkpnt3.pkl"))
 
+# The synthetic-scene generator and the reference .pth export and import.
+from fourdgs_tpu_torch import gen_synth_dataset
+from fourdgs_tpu_torch.engine.checkpoint import load_checkpoint
+from fourdgs_tpu_torch.models import torch_import
+synth_dir = os.path.join(os.path.dirname(sys.argv[2]), "synth")
+assert gen_synth_dataset.main(["--out", synth_dir, "--device", "cpu",
+                               "--size", "16", "--n_train", "2",
+                               "--n_test", "1", "--points_scale", "0.05"]) == 0
+pth = os.path.join(train_dir, "chkpnt3.pth")
+torch_import.export_reference_pth(
+    pth, load_checkpoint(os.path.join(train_dir, "chkpnt3.pkl"),
+                         device="cpu")[0], iteration=3)
+assert torch_import.import_reference_pth(pth, device="cpu")[1][
+    "iteration"] == 3
+
 loaded = sorted(m for m in sys.modules if banned(m))
 print("MODULES", len(names), "EARLY", early, "BANNED", loaded)
 """
@@ -83,7 +99,9 @@ print("MODULES", len(names), "EARLY", early, "BANNED", loaded)
 REQUIRED = ("config", "render_cli", "viewer", "train", "data.scene",
             "data.colmap", "data.pointcloud", "engine.evaluator",
             "engine.trainer", "models.densify", "models.envmap",
-            "models.ply_io", "utils.image", "utils.metrics_log")
+            "models.ply_io", "utils.image", "utils.metrics_log",
+            "gen_synth_dataset", "data.synth", "models.torch_import",
+            "utils.tb_writer")
 
 
 def test_port_imports_no_jax(tmp_path, rng):

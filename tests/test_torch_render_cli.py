@@ -2,7 +2,7 @@
 written, metrics equal to a direct Evaluator run (tolerance: none, the
 same code on the same device), the packed path within 1.5e-2 of the exact
 one, and the clean exits (code 2) of a missing checkpoint, a missing
-device and an option that is not ported."""
+device, and a missing reference .pth checkpoint with --export_pth."""
 
 import json
 import os
@@ -133,7 +133,8 @@ def test_cli_default_out_dir(workdir):
     (["--checkpoint", "/nonexistent/chkpnt1.pkl"], "checkpoint not found"),
     (["--load_iteration", "12345"], "checkpoint not found"),
     ([], "--checkpoint or --load_iteration"),
-    (["--load_iteration", "-1", "--export_pth", "x.pth"], "torch_import"),
+    (["--checkpoint", "/nonexistent/chkpnt1.pth", "--export_pth", "x.pth"],
+     "checkpoint not found"),
 ], ids=["missing_path", "missing_iteration", "no_checkpoint", "export_pth"])
 def test_cli_clean_exit_2(workdir, capsys, extra, message):
     assert _run(workdir, *extra, out="never") == 2

@@ -5,6 +5,7 @@ CPU."""
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from fourdgs_tpu_torch.data import cameras as port_cameras
@@ -234,3 +235,14 @@ def jax_synth_gate_state(seed=0, p=300):
         texture=jnp.asarray(rng.random((8, 8, 3)), jnp.float32),
         count=jnp.asarray(9, jnp.int32))
     return state._replace(params=params), env
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for a module's tests (import it into the module to
+    apply it): the tier-1 run has six workers on the machine's cores, and
+    torch's own thread pool per worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
