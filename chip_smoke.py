@@ -11,15 +11,19 @@ kernel against its plain PyTorch version on the card, then serves renders
 of the full-width model, takes training steps on it and evaluates a
 checkpoint of it from files on disk, trains the lego config end to end,
 generates the configs/synth datasets and trains both synth configs
-through the port's entry points, and times them:
+through the port's entry points, renders and trains with each frame as
+strips and takes data-parallel steps over a process group of one rank,
+and times them:
 
   1. device   the card's name and power limit (nvidia-smi); no CUDA → exit 1
   2. build    nvcc of every kernel; seconds and ptxas report
   3. kernel   the forward blend kernel K1 vs its plain version on small
               scenes: random, saturated and more than 256 instances deep,
-              empty tiles, partial tiles (48x40), and thin tilted
+              empty tiles, partial tiles (48x40), thin tilted
               gaussians with opacities near 1/255 where the warp cull's
-              margins decide (cull_edges, 48x40); accum within 1e-5 abs,
+              margins decide (cull_edges, 48x40), and two strip windows
+              (a partial last tile row; the principal point above the
+              window); accum within 1e-5 abs,
               T_final within 1e-6 abs, n_contrib equal on >= 99.99% of
               pixels. The packed inference blend K3 vs its plain version
               (the same bounds) and within 1.5e-2 of K1. The backward
@@ -117,7 +121,30 @@ through the port's entry points, and times them:
               GT cache on the device where the JAX trainer's rule puts it,
               K1 and K2 held to their plain versions on the four cameras
               of step 101; step ms and knn's share of a staged step
- 13. kernels  what the warp-private walks of K1, K2 and K3 visit on these
+ 13. strips   one frame as horizontal strips (parallel/strips.py: each
+              strip rendered as its window of the frame, one kernel
+              launch per strip) and the data-parallel step
+              (parallel/mesh.py), in a world-size-1 NCCL group of this
+              process (strips render as strips where a mesh holds them;
+              with no mesh, as the full frame): a. the eval phase's
+              800x800 checkpoint through Evaluator with cfg.strips 2 and
+              4 (400- and 200-row strips) and the 1352x1014 env-map one
+              with 2 and 3 (507 and 338 rows), exact and --fast: the
+              joined frame within 2e-5 of the full frame of the same
+              path, exactly n K1 (exact) or n K3 (fast) launches per view
+              and one with no mesh, fast within 1.5e-2 of exact, ms per
+              view beside the full frame's; b. configs/synth/
+              quality.yaml on train_synth_quality's dataset with
+              --override strips=2 (200-row strips), 200 iterations:
+              exactly 2·2 K1 and 2·2 K2 per step, finite loss, held-out
+              PSNR up, K1 and K2 held to their plain versions on the four
+              strips of step 101, and that step run again as full frames
+              (tests/test_parallel.py:117-127's bounds); c. 3 lego steps
+              at 800x800 through the sharded step, each held to train_step on the
+              same state (1e-6 in each leaf's relative L2 norm, or
+              3x train_step's own run-to-run spread), all-reduce
+              ms per step from CUDA events
+ 14. kernels  what the warp-private walks of K1, K2 and K3 visit on these
               inputs (the share of (warp, instance) pairs that passes the
               cull, K2's shuffles and atomics per camera, counted by the
               plain versions), then one
@@ -161,6 +188,8 @@ from fourdgs_tpu_torch.models import envmap, gaussians  # noqa: E402
 from fourdgs_tpu_torch.models.gaussians import from_jax_params  # noqa: E402
 from fourdgs_tpu_torch.ops import blend  # noqa: E402
 from fourdgs_tpu_torch.ops import preprocess as pre  # noqa: E402
+from fourdgs_tpu_torch.parallel import multihost  # noqa: E402
+from fourdgs_tpu_torch.parallel.strips import strip_windows  # noqa: E402
 from fourdgs_tpu_torch.render import (  # noqa: E402
     GaussianRenderer, blend_inputs, render)
 from fourdgs_tpu_torch.utils import losses  # noqa: E402
@@ -467,8 +496,18 @@ def kernel_cases(device):
     s["opacity"] = opa.astype(np.float32)
     cases["cull_edges_48x40"] = (s, 48, 40)
 
-    for name, (scene, h, w) in cases.items():
+    # Strip windows (parallel/strips.py), rendered with the frame's camera:
+    # strip 1 of a 40x40 frame in 2 (rows 16-39: a partial last tile
+    # row) and strip 3 of a 48x40 frame in 4 (rows 32-47: the principal
+    # point 8 rows above the window). Each instance list holds only the
+    # window's tiles.
+    cases["strip_partial_24x40"] = (small_scene(rng, 200), 40, 40, 2, 1)
+    cases["strip_offcentre_16x40"] = (small_scene(rng, 200), 48, 40, 4, 3)
+
+    for name, (scene, h, w, *strip) in cases.items():
         opts = pre.RenderOptions(height=h, width=w)
+        if strip:
+            opts = strip_windows(opts, strip[0])[strip[1]]
         act = {k: torch.as_tensor(v, device=device) for k, v in scene.items()}
         proc, bins, rec = blend_inputs(
             **act, camera=camera(w, h, 0.5, device), opts=opts)
@@ -481,7 +520,8 @@ def kernel_cases(device):
         k2_err, _, pairs = compare_backward(
             backward_args(rec, bins, k, dcot, opts))
         counts = bins.tile_count
-        report.update(case=name, num_rendered=bins.num_rendered,
+        report.update(case=name, height=opts.height, row0=opts.row0,
+                      num_rendered=bins.num_rendered,
                       max_per_tile=int(bins.max_per_tile),
                       empty_tiles=int((counts == 0).sum()),
                       launches=blend.blend_forward.launches,
@@ -1180,7 +1220,8 @@ def env_evaluator(device, p, h, w, res):
 
 def eval_env_phase(device, p=300_000, h=1014, w=1352, res=500):
     """One view of the DyNeRF-shape cloud through Evaluator with an
-    environment map in the checkpoint and the packed blend."""
+    environment map in the checkpoint and the packed blend: (K3 launches,
+    the evaluator, its camera)."""
     evaluator, cam = env_evaluator(device, p, h, w, res)
     evaluator.render_view(cam)                           # warm-up
     torch.cuda.synchronize()
@@ -1218,7 +1259,7 @@ def eval_env_phase(device, p=300_000, h=1014, w=1352, res=500):
     emit(dict(phase=f"eval_{w}x{h}_env", gaussians=p, height=h, width=w,
               env_map_res=res, view_ms=view_ms, sky_err=sky_err,
               launches=launches, k3=row))
-    return launches["k3"]
+    return launches["k3"], evaluator, cam
 
 
 def viewer_phase(evaluator):
@@ -1737,8 +1778,8 @@ def train_synth_quality_phase(device, size=400, n_train=120, n_test=20,
     evaluated at 500 and 1000 with TensorBoard events; K1 and K2 held to
     their plain versions on the cameras of step 601; chkpnt1000.pkl
     through render_cli. The arguments cut the scene for a rehearsal.
-    Returns the training's launch counts and render_cli --fast's K3
-    launches."""
+    Returns the training's launch counts, render_cli --fast's K3 launches
+    and the median step ms before the first densify event."""
     t0 = time.perf_counter()
     oracle_err = oracle_card_vs_cpu(device)
     root = os.path.join(ROOT, "build", "synth_quality")
@@ -1819,7 +1860,8 @@ def train_synth_quality_phase(device, size=400, n_train=120, n_test=20,
         k1=k1_rows, k2=k2_rows, launches=launches,
         evaluation_views=obs["views"], **renders,
         seconds=time.perf_counter() - t0))
-    return launches, renders["render_cli"]["fast"]["launches"]["k3"]
+    return (launches, renders["render_cli"]["fast"]["launches"]["k3"],
+            median_step_ms(steps, 2, 600))
 
 
 def gt_cache_expected(trainer):
@@ -1914,6 +1956,358 @@ def train_synth_dynerf_phase(device, size=400, n_cams=15, data=(),
         seconds=time.perf_counter() - t0))
     return launches
 
+# --------------------------------------------------------------------------
+# Strips: one frame as horizontal strips, and the data-parallel step
+# --------------------------------------------------------------------------
+
+# The joined strips against the full frame (tests/test_strips.py:42-45).
+# A strip renders as its window of the frame (parallel/strips.py), whose
+# rows are the full frame's bit for bit on the CPU.
+TOL_STRIPS = 2e-5
+STRIP_TIMED = 5
+
+
+def view_ms(evaluator, cam, reps=STRIP_TIMED):
+    """Median ms of `reps` views of `cam` (host clock, synchronised)."""
+    wall = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        evaluator.render_view(cam)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+    return float(np.median(wall))
+
+
+def strip_views(evaluator, mesh, cams, counts, label):
+    """Each view of `cams` through `evaluator` with cfg.strips = n for each
+    n of `counts`, its strips on `mesh`, exact (K1) and fast (K3): the
+    joined frame within TOL_STRIPS of the full frame of the same path, n
+    launches of the path's kernel and none of the other, no dropped
+    instance, fast within TOL_INFER of exact; ms per view beside the full
+    frame's on cams[0], and the launches of a view with no mesh (one: the
+    full frame). Returns the rows and the main path's K1 and K3
+    launches."""
+    rows, k1, k3 = [], 0, 0
+    for n in counts:
+        for fast in (False, True):
+            evaluator.eval_infer = fast
+            path = "k3" if fast else "k1"
+            err = 0.0
+            for cam in cams:
+                evaluator.cfg.strips, evaluator.mesh = 1, None
+                full = evaluator.render_view(cam)
+                evaluator.cfg.strips, evaluator.mesh = n, mesh
+                torch.cuda.synchronize()
+                zero_launches()
+                joined = evaluator.render_view(cam)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                want = {"k1": 0, "k2": 0, "k3": 0, path: n}
+                check(launches == want, f"{label} strips={n}: launches "
+                      f"{launches}, expected {want}")
+                k1, k3 = k1 + launches["k1"], k3 + launches["k3"]
+                check(evaluator.last_counts["instances_dropped"] == 0,
+                      f"{label} strips={n}: instances dropped")
+                for a, b in zip(joined, full):
+                    check(a.shape == b.shape, f"{label}: joined shape")
+                    err = max(err, float((a - b).abs().max()))
+            check(err <= TOL_STRIPS, f"{label} strips={n} fast={fast}: "
+                  f"joined strips differ from the full frame by {err}")
+            strip_ms = view_ms(evaluator, cams[0])
+            evaluator.mesh = None
+            torch.cuda.synchronize()
+            zero_launches()
+            evaluator.render_view(cams[0])
+            torch.cuda.synchronize()
+            alone = read_launches()
+            check(alone == {"k1": 0, "k2": 0, "k3": 0, path: 1},
+                  f"{label} strips={n} with no mesh: launches {alone}, "
+                  "expected the full frame's one")
+            evaluator.cfg.strips = 1
+            full_ms = view_ms(evaluator, cams[0])
+            rows.append(dict(strips=n, fast=fast, views=len(cams),
+                             strip_rows=evaluator.opts.height // n,
+                             max_abs_vs_full=err, view_ms=strip_ms,
+                             full_frame_view_ms=full_ms,
+                             no_mesh_launches=alone[path]))
+        evaluator.cfg.strips, evaluator.mesh = n, mesh
+        diffs = [fast_vs_exact(evaluator, cam, f"{label} strips={n}")[0]
+                 for cam in cams]
+        rows[-1]["fast_vs_exact"] = diffs
+    evaluator.cfg.strips, evaluator.eval_infer = 1, False
+    evaluator.mesh = None
+    return rows, k1, k3
+
+
+def strips_eval_phase(evaluator_800, env_evaluator_1352, env_cam, mesh):
+    """a. Strip views on `mesh` of the eval phase's 100k checkpoint at
+    800x800 (2 and 4 strips: 400 and 200 rows) and of the 300k 1352x1014
+    env-map checkpoint (2 and 3 strips: 507 and 338 rows)."""
+    fast_env = env_evaluator_1352.eval_infer
+    rows_800, k1_a, k3_a = strip_views(
+        evaluator_800, mesh, evaluator_800.scene.test_cameras, (2, 4),
+        "strips_eval_800x800")
+    rows_env, k1_b, k3_b = strip_views(
+        env_evaluator_1352, mesh, [env_cam], (2, 3),
+        "strips_eval_1352x1014_env")
+    env_evaluator_1352.eval_infer = fast_env
+    emit(dict(phase="strips_eval", tolerance_vs_full=TOL_STRIPS,
+              eval_800x800=rows_800, eval_1352x1014_env=rows_env,
+              launches=dict(k1=k1_a + k1_b, k3=k3_a + k3_b)))
+    return k1_a + k1_b, k3_a + k3_b
+
+
+def capture_train_step(check_step, made):
+    """A stand-in for engine.trainer's `train_step` that runs it and
+    records the inputs and outputs of training step `check_step` in
+    `made`."""
+    def recording(state, step, *args, **kwargs):
+        out = train.train_step(state, step, *args, **kwargs)
+        if step == check_step:
+            made.append((state, step, args, kwargs, out))
+        return out
+    return recording
+
+
+def rerun_full_frame(captured, label):
+    """The captured strip step run again with strips=1 and no mesh on the
+    same state and inputs: loss rtol 1e-5, PSNR rtol 1e-4, xyz atol 1e-5,
+    xyz_grad_accum atol 1e-5 rtol 1e-4, max_radii2d atol 1e-4 against
+    the strip step (tests/test_parallel.py:117-127)."""
+    state, step, args, kwargs, (new, _, m) = captured
+    full, _, fm = train.train_step(state, step, *args,
+                                   **dict(kwargs, strips=1, mesh=None))
+    torch.cuda.synchronize()
+
+    def close(a, b, atol, rtol=0.0):
+        return float(((a - b).abs() - atol - rtol * b.abs()).max()) <= 0.0
+
+    out = dict(
+        loss=[float(m.loss), float(fm.loss)],
+        psnr=[float(m.psnr), float(fm.psnr)],
+        xyz_max_abs=float((new.params.xyz - full.params.xyz).abs().max()),
+        xyz_grad_accum_max_abs=float(
+            (new.xyz_grad_accum - full.xyz_grad_accum).abs().max()),
+        max_radii2d_max_abs=float(
+            (new.max_radii2d - full.max_radii2d).abs().max()))
+    check(abs(float(m.loss) - float(fm.loss)) <= 1e-5 * abs(float(fm.loss))
+          and abs(float(m.psnr) - float(fm.psnr))
+          <= 1e-4 * abs(float(fm.psnr))
+          and close(new.params.xyz, full.params.xyz, 1e-5)
+          and close(new.xyz_grad_accum, full.xyz_grad_accum, 1e-5, 1e-4)
+          and close(new.max_radii2d, full.max_radii2d, 1e-4),
+          f"{label}: the strip step against the full frame: {out}")
+    return out
+
+
+SYNTH_STRIPS_CUTS = ["optimization.iterations=200", "test_iterations=[200]",
+                     "save_iterations=[]", "strips=2"]
+
+
+def train_synth_strips_phase(device, quality_step_ms, extra=()):
+    """b. configs/synth/quality.yaml on train_synth_quality's dataset with
+    strips=2 (200-row strips, 12.5 tile rows) for 200 iterations through
+    `fourdgs_tpu_torch.train.main`, under the open process group of one
+    rank (so that a mesh holds the strips; with no group the Trainer
+    trains the full frames): exactly 2·2 K1 and 2·2 K2 per step, a
+    finite loss, held-out PSNR up; K1 and K2 held to their plain versions
+    on the four strips of step 101, and that step run again as full
+    frames. Returns the launch counts."""
+    from fourdgs_tpu_torch.engine import trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "synth_quality")
+    source = os.path.join(root, "data")
+    model_dir = os.path.join(root, "model_strips")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    config = os.path.join(ROOT, "configs", "synth", "quality.yaml")
+    argv = ["--config", config, "--device", str(device), "--quiet",
+            "--override", f"model.source_path={source}",
+            f"model.model_path={model_dir}"] + SYNTH_STRIPS_CUTS + list(extra)
+    iterations, check_step, n = 200, 101, 2
+    captured = []
+    base_step = trainer_mod.train_step
+    trainer_mod.train_step = capture_train_step(check_step, captured)
+    try:
+        trainer, launches, train_s = run_training(argv, check_step,
+                                                  "train_synth_strips")
+    finally:
+        trainer_mod.train_step = base_step
+    obs = trainer.obs
+    check(trainer.cfg.strips == n and trainer.mesh is not None,
+          "train_synth_strips: strips not set or no mesh")
+    steps = obs["steps"]
+    check(len(steps) == iterations, f"train_synth_strips: {len(steps)} "
+          "steps")
+    for st in steps:
+        check(np.isfinite(st["loss"]) and st["dropped"] == 0,
+              f"train_synth_strips it {st['it']}: loss {st['loss']}, "
+              f"dropped {st['dropped']}")
+    check(not obs["events"], "train_synth_strips: a densify event")
+    batch = trainer.cfg.batch_size
+    want = dict(k1=batch * n * iterations + n * obs["views"],
+                k2=batch * n * iterations, k3=0)
+    check(launches == want, f"train_synth_strips: launches {launches}, "
+          f"expected {want} ({obs['views']} evaluation views)")
+    before, after = obs["evaluations"][0], obs["evaluations"][-1]
+    check(before["step"] == 0 and after["step"] == iterations
+          and after["psnr"] > before["psnr"],
+          f"train_synth_strips: test PSNR {before['psnr']} -> "
+          f"{after['psnr']}")
+    k1_rows, k2_rows = step_kernel_rows(obs, check_step, obs["initial"],
+                                        batch * n, "train_synth_strips")
+    check(len(captured) == 1, "train_synth_strips: step not captured")
+    full_frame = rerun_full_frame(captured[0], "train_synth_strips")
+    emit(dict(
+        phase="train_synth_quality_strips",
+        config="configs/synth/quality.yaml",
+        cuts=SYNTH_STRIPS_CUTS + list(extra), strips=n,
+        strip_rows=trainer.opts.height // n, iterations=iterations,
+        step_ms_median=median_step_ms(steps, 2, iterations + 1),
+        full_frame_step_ms_median=quality_step_ms,
+        steps_per_s=iterations / train_s, train_s=train_s,
+        psnr_before=before["psnr"], psnr_after=after["psnr"],
+        loss_first=steps[0]["loss"], loss_last=steps[-1]["loss"],
+        step_vs_full_frame=full_frame, k1=k1_rows, k2=k2_rows,
+        launches=launches, evaluation_views=obs["views"],
+        seconds=time.perf_counter() - t0))
+    return launches
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+# |a − b| / |b| (L2) per leaf, or three times that of two train_steps on
+# the same inputs where that is larger.
+TOL_DP = 1e-6
+
+
+def data_parallel_phase(device, mesh, p=100_000, hw=800, steps=3):
+    """c. The data-parallel step (parallel/mesh.py) on one card: on
+    `mesh`, a world-size-1 NCCL group, 3 lego steps at 800x800 (batch 2)
+    through the sharded step, each held to train_step on the same state and inputs:
+    the loss within TOL_DP, and the gradients, statistics and (where the
+    gradient is above 1e-3 of its leaf's largest) parameters within TOL_DP
+    in the relative L2 norm of each leaf, or 3x train_step's own
+    run-to-run spread on the card, whichever is larger; all-reduce ms per
+    step from CUDA events. Returns the launch counts."""
+    import torch.distributed as dist
+
+    from fourdgs_tpu_torch.parallel import make_sharded_train_step
+
+    scene = bench_scene(p, seed=0)
+    params = gaussians.GaussianParams(**{
+        k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+        for k, v in raw_params(scene).items()})
+    state = gaussians.new_state(params, p)
+    opts = pre.RenderOptions(height=hw, width=hw, gaussian_dim=4,
+                             rot_4d=True, time_duration=1.0)
+    cams = [camera(hw, hw, ts, device) for ts in (0.3, 0.6)]
+    rng = np.random.default_rng(0)
+    gt = torch.as_tensor(rng.random((2, hw, hw, 3)).astype(np.float32),
+                         device=device)
+    mask = torch.ones((2, hw, hw), device=device)
+    bg = torch.zeros(3, device=device)
+
+    step_fn = make_sharded_train_step(opts, LEGO, mesh, batch_size=2)
+    step_fn(state, FIRST_STEP, cams, gt, mask, bg)        # warm-up
+    torch.cuda.synchronize()
+
+    # The main path: counts zeroed just before, read just after.
+    states, metrics, wall = [state], [], []
+    zero_launches()
+    for i in range(steps):
+        t1 = time.perf_counter()
+        new, _, m = step_fn(states[-1], FIRST_STEP + i, cams, gt, mask,
+                            bg)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+        states.append(new)
+        metrics.append(m)
+    launches = read_launches()
+    check(launches == dict(k1=2 * steps, k2=2 * steps, k3=0),
+          f"data_parallel: launches {launches}")
+
+    def leaves(st, ref, prev):
+        """Each leaf the step writes, by name: Adam's first moments
+        (the gradients), the statistics, and the parameters where the
+        gradient of the step `ref` is above 1e-3 of its leaf's largest
+        (Adam moves the others by ±lr whatever their size)."""
+        out = {f"grad_{f}": x for f, x in zip(st.params._fields,
+                                               st.adam.mu)}
+        out.update({f: getattr(st, f) for f in (
+            "xyz_grad_accum", "t_grad_accum", "denom", "max_radii2d")})
+        for f, x, mw, m0 in zip(st.params._fields, st.params,
+                                ref.adam.mu, prev.adam.mu):
+            g = (mw - 0.9 * m0).abs()        # 0.1 x the gradient
+            out[f"param_{f}"] = torch.where(
+                g > 1e-3 * float(g.max()), x, 0.0)
+        return out
+
+    def rel(a, b):
+        """|a − b| / |b| in the L2 norm: stable under the card's
+        atomic-order noise, where the largest single difference (a
+        sum that cancels) is not."""
+        return float(torch.linalg.vector_norm((a - b).double())) / max(
+            float(torch.linalg.vector_norm(b.double())), 1e-30)
+
+    def rel_max(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                1e-30)
+
+    # train_step twice per step: the card's own run-to-run spread
+    # (K2's atomics and the preprocess backward's scatter-adds sum in
+    # another order on every run) is the floor of the comparison.
+    compared = []
+    for i, dm in enumerate(metrics):
+        want, _, wm = train.train_step(states[i], FIRST_STEP + i, cams,
+                                       gt, mask, bg, LEGO, opts)
+        again = train.train_step(states[i], FIRST_STEP + i, cams, gt,
+                                 mask, bg, LEGO, opts)[0]
+        w, a, d = (leaves(x, want, states[i]) for x in (
+            want, again, states[i + 1]))
+        err = {k: rel(d[k], w[k]) for k in w}
+        spread = {k: rel(a[k], w[k]) for k in w}
+        bad = {k: (err[k], spread[k]) for k in w
+               if err[k] > max(TOL_DP, 3.0 * spread[k])}
+        loss = abs(float(dm.loss) - float(wm.loss)) / abs(float(wm.loss))
+        worst = max(err, key=err.get)
+        compared.append(dict(
+            step=FIRST_STEP + i, loss_rel=loss, l2_rel=err[worst],
+            leaf=worst, spread_of_that_leaf=spread[worst],
+            max_spread=max(spread.values()),
+            max_abs_rel=max(rel_max(d[k], w[k]) for k in w),
+            max_abs_rel_spread=max(rel_max(a[k], w[k]) for k in w)))
+        check(loss <= TOL_DP and not bad,
+              f"data_parallel step {i}: loss {loss}, beyond "
+              f"max({TOL_DP}, 3 x train_step's spread): {bad}")
+
+    splits = []
+    for i in range(3):
+        total, parts = staged(lambda mark: step_fn(
+            states[-1], FIRST_STEP + steps + i, cams, gt, mask, bg,
+            mark=mark))
+        splits.append(dict(total=total, all_reduce=dict(parts)[
+            "all_reduce"]))
+    single = [staged(lambda mark: train.train_step(
+        states[-1], FIRST_STEP + steps + i, cams, gt, mask, bg, LEGO,
+        opts))[0] for i in range(3)]
+    emit(dict(
+        phase="data_parallel", backend=dist.get_backend(),
+        world_size=mesh.size, gaussians=p, height=hw, width=hw, batch=2,
+        steps=steps, step_ms=wall, compared=compared, tolerance=TOL_DP,
+        all_reduce_ms_median=float(np.median(
+            [s["all_reduce"] for s in splits])),
+        step_ms_median_staged=float(np.median(
+            [s["total"] for s in splits])),
+        train_step_ms_median_staged=float(np.median(single)),
+        all_reduce_floats=sum(x.numel() for x in state.params)
+        + 2 * p * 3 + 7, launches=launches))
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1957,17 +2351,31 @@ def main() -> int:
     # 7. evaluation from files through render_cli (K3), 8. the DyNeRF
     # shape with an environment map, 9. the viewer socket
     evaluator, k3_row_800, eval_k3 = eval_phase(device)
-    env_k3 = eval_env_phase(device)
+    env_k3, env_eval, env_cam = eval_env_phase(device)
     viewer_k3 = viewer_phase(evaluator)
 
     # 10. the lego config trained end to end from a scene on disk
     lego_launches, lego_k3 = train_lego_phase(device)
     # 11. the configs/synth scenarios: datasets generated on the card, then
     # synth/quality.yaml's first 1000 iterations and dynerf_quality.yaml
-    synth_launches, synth_k3 = train_synth_quality_phase(device)
+    synth_launches, synth_k3, synth_step_ms = train_synth_quality_phase(
+        device)
     dynerf_launches = train_synth_dynerf_phase(device)
 
-    # 12. kernel summary: K1 at the 800x800 requests (means over the four),
+    # 13. strips, in a process group of this process alone: a. strip
+    # views, b. strip training, c. the data-parallel step on one card
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        mesh = multihost.global_mesh()
+        strips_k1, strips_k3 = strips_eval_phase(evaluator, env_eval,
+                                                 env_cam, mesh)
+        del env_eval
+        strips_launches = train_synth_strips_phase(device, synth_step_ms)
+        dp_launches = data_parallel_phase(device, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # 14. kernel summary: K1 at the 800x800 requests (means over the four),
     # K2 at the first training step's two cameras (means over the two), K3
     # at the first 800x800 evaluation view.
     mean = lambda rs, key: float(np.mean([r[key] for r in rs]))  # noqa: E731
@@ -1987,7 +2395,11 @@ def main() -> int:
                              "train_800x800": train_launches["k1"],
                              "train_lego_densify": lego_launches["k1"],
                              "train_synth_quality": synth_launches["k1"],
-                             "train_synth_dynerf": dynerf_launches["k1"]},
+                             "train_synth_dynerf": dynerf_launches["k1"],
+                             "strips_eval": strips_k1,
+                             "train_synth_quality_strips":
+                                 strips_launches["k1"],
+                             "data_parallel": dp_launches["k1"]},
         "max_abs_err": max(max(r["accum_err"], r["t_final_err"])
                            for r in rows),
         "ms": mean(rows, "kernel_ms"),
@@ -2004,7 +2416,10 @@ def main() -> int:
         "launches_by_path": {"train_800x800": train_launches["k2"],
                              "train_lego_densify": lego_launches["k2"],
                              "train_synth_quality": synth_launches["k2"],
-                             "train_synth_dynerf": dynerf_launches["k2"]},
+                             "train_synth_dynerf": dynerf_launches["k2"],
+                             "train_synth_quality_strips":
+                                 strips_launches["k2"],
+                             "data_parallel": dp_launches["k2"]},
         "max_abs_err": max(r["abs_err"] for r in k2_rows),
         # |k - p| / max(|p|.max(), 1e-3) per record column, held to 2e-4
         "max_scaled_err": max(r["grad_err"] for r in k2_rows),
@@ -2023,7 +2438,8 @@ def main() -> int:
                              "eval_1352x1014_env": env_k3,
                              "viewer": viewer_k3,
                              "train_lego_densify_render_cli": lego_k3,
-                             "train_synth_quality_render_cli": synth_k3},
+                             "train_synth_quality_render_cli": synth_k3,
+                             "strips_eval_fast": strips_k3},
         "max_abs_err": max(k3_row_800["accum_err"],
                            k3_row_800["t_final_err"]),
         "ms": k3_row_800["ms"],

@@ -29,6 +29,9 @@ from ..models.gaussians import activate
 from ..ops import gaussmath as gm
 from ..ops import sh as shlib
 from ..ops.preprocess import CameraArrays, RenderOptions
+from ..parallel.mesh import gather_strips, shard_batch
+from ..parallel.strips import (strip_options, strip_windows,
+                               window_intrinsics, window_rows)
 from ..render import render
 from ..utils import losses as loss_lib
 from . import checkpoint as ckpt_lib
@@ -76,11 +79,6 @@ class Evaluator:
 
     def __init__(self, cfg: TrainConfig, scene: Optional[SceneInfo] = None,
                  device="cuda", verbose: bool = True):
-        if cfg.strips > 1:
-            raise NotImplementedError(
-                "cfg.strips > 1 renders one frame across devices; the "
-                "multi-device modules (parallel/) are not ported yet "
-                "(ROADMAP.md, Queue 1)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.verbose = verbose
@@ -114,6 +112,8 @@ class Evaluator:
             time_duration=float(self.time_duration[1]
                                 - self.time_duration[0]),
             prefilter_var=cfg.model.prefilter_var)
+        if cfg.strips > 1:           # a height that does not divide raises
+            strip_options(self.opts, cfg.strips)
         self.bg = torch.tensor(
             [1.0, 1.0, 1.0] if cfg.model.white_background
             else [0.0, 0.0, 0.0], dtype=torch.float32, device=self.device)
@@ -131,6 +131,9 @@ class Evaluator:
         # TensorBoard writer (`utils/tb_writer.py`) that `evaluate` reports
         # to; the Trainer opens one in its model dir.
         self.tb = None
+        # The data axis (`parallel/mesh.py:Mesh`) over which a view's
+        # strips spread, when the Trainer runs under a process group.
+        self.mesh = None
 
     def log(self, msg: str):
         if self.verbose:
@@ -170,13 +173,15 @@ class Evaluator:
 
     @torch.no_grad()
     def _render_eval(self, cam: CameraArrays, intr: torch.Tensor,
-                     mark: Callable[[str], None] | None = None):
-        """One eval render (`_make_eval_render.eval_fn`, trainer.py:431-505):
-        (colour clipped to [0, 1], depth, alpha, num_rendered,
-        max_per_tile, instances_dropped)."""
+                     mark: Callable[[str], None] | None = None,
+                     opts: RenderOptions | None = None):
+        """One eval render (`_make_eval_render.eval_fn`, trainer.py:431-505)
+        at `opts` (default the scene's full frame): (colour clipped to
+        [0, 1], depth, alpha, num_rendered, max_per_tile,
+        instances_dropped)."""
         if self.gauss is None:
             raise RuntimeError("no checkpoint loaded: call load(path) first")
-        opts, pipe = self.opts, self.cfg.pipeline
+        opts, pipe = opts or self.opts, self.cfg.pipeline
         act = activate(self.gauss.params, self.n_active)
         extra = {}
         means3d, opacity, active = act.means3d, act.opacity, act.active
@@ -259,9 +264,44 @@ class Evaluator:
 
     def render_view(self, cam: Camera,
                     mark: Callable[[str], None] | None = None):
-        """Render one scene camera: (color, depth, alpha) on the device."""
+        """Render one scene camera: (color, depth, alpha) on the device.
+        With cfg.strips > 1 under a mesh whose size divides the strips
+        (the Trainer's, under a process group), the frame renders as that
+        many strips, each as its window of the frame
+        (`parallel/strips.py:strip_windows`, what the strip train step
+        renders) cut to its rows: each rank renders its share, and the
+        rows are all-gathered and joined top to bottom (JAX
+        `Trainer._render_view_strips`). Otherwise it renders the full
+        frame, which the strips equal."""
+        mesh = self.mesh
+        if (self.cfg.strips > 1 and mesh is not None
+                and self.cfg.strips % mesh.size == 0):
+            return self._render_view_strips(cam, mesh, mark)
         intr = torch.as_tensor(camera_intrinsics(cam), device=self.device)
         return self.render_arrays(cam.arrays(self.device), intr, mark)
+
+    @torch.no_grad()
+    def _render_view_strips(self, cam: Camera, mesh, mark=None):
+        n = self.cfg.strips
+        work = shard_batch(mesh, list(zip(strip_windows(self.opts, n),
+                                          window_rows(self.opts.height, n))))
+        arrays = cam.arrays(self.device)
+        intr = torch.as_tensor(camera_intrinsics(cam), device=self.device)
+        outs = [self._render_eval(arrays, window_intrinsics(intr, opts),
+                                  mark, opts) for opts, _ in work]
+        images = [torch.cat([o[k][crop:] for o, (_, crop) in zip(outs, work)],
+                            dim=0) for k in range(3)]
+        counts = torch.tensor([[max(o[3] for o in outs),
+                                int(max(o[4] for o in outs)),
+                                sum(o[5] for o in outs)]],
+                              device=self.device)
+        images = [gather_strips(x, mesh) for x in images]
+        counts = gather_strips(counts, mesh)
+        self.last_counts = dict(
+            num_rendered=int(counts[:, 0].max()),
+            max_per_tile=int(counts[:, 1].max()),
+            instances_dropped=int(counts[:, 2].sum()))
+        return tuple(images)
 
     def evaluate(self, max_cameras: Optional[int] = None,
                  with_msssim: bool = False, train_views: int = 0,

@@ -5,7 +5,9 @@ PyTorch counterpart of `fourdgs_tpu/engine/step.py:build_step_fn` (the
 reference hot loop, `train.py:83-252`). The JAX step vmaps the camera
 batch; here the cameras are rendered one after another into one loss and
 one `backward()`, which is the same math (losses are averaged over the
-batch). Strips (multi-device) are not ported yet.
+batch). A camera may render as horizontal strips (`strips`), joined into
+its full frame before the loss, and the batch may spread over the ranks
+of a process group (`mesh`, `parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..models import envmap as envmap_lib
 from ..models.densify import add_densification_stats
@@ -23,6 +26,8 @@ from ..ops import gaussmath as gm
 from ..ops import sh as shlib
 from ..ops.knn import knn
 from ..ops.preprocess import CameraArrays, RenderOptions
+from ..parallel.mesh import Mesh, gather_strips
+from ..parallel.strips import strip_windows, window_intrinsics, window_rows
 from ..render import render
 from ..utils import losses as loss_lib
 
@@ -150,41 +155,25 @@ def env_adam_update(env: envmap_lib.EnvMapState, grad: torch.Tensor,
     return envmap_lib.EnvMapState(env.texture - upd, mu, nu, count)
 
 
-def train_step(state: GaussianState, step: int,
-               cams: Sequence[CameraArrays], gt: torch.Tensor,
-               alpha_mask: torch.Tensor, bg: torch.Tensor, cfg: StepConfig,
-               opts: RenderOptions, env: envmap_lib.EnvMapState | None = None,
-               intrinsics: torch.Tensor | None = None, mark=None):
-    """One optimizer step over the camera batch `cams` (B cameras; gt
-    (B, H, W, 3), alpha_mask (B, H, W), bg (3,)). With cfg.env_map_res > 0
-    the sky of `env` is composited into each camera's colour before the
-    loss (rays from `intrinsics` (B, 4) [fl_x, fl_y, cx, cy]) and the map
-    takes its own Adam step. Returns (new state, new env, StepMetrics);
-    nothing is changed in place.
-
-    `mark`, if given, is called with a name as soon as the work of each
-    stage is issued, for timing: `render`'s marks for each camera
-    (preprocess, binning, blend), then "loss" (photometric losses),
-    "knn" (the rigid and motion losses), and in the backward
-    "blend_backward_start" and "blend_backward" around each camera's
-    blend backward (cotangents and K2), "backward" at its end, and
-    "update" (statistics and Adam)."""
-    has_env = cfg.env_map_res > 0
-    if has_env and (env is None or intrinsics is None):
-        raise ValueError("env_map_res > 0 needs the env map and the "
-                         "cameras' intrinsics")
-    params = GaussianParams(*(x.detach().requires_grad_() for x in
-                              state.params))
-    tex = env.texture.detach().requires_grad_() if has_env else None
-    p = params.xyz.shape[0]
-    act = activate(params, state.n_active)
-    sh_mask = sh_annealing_mask(step, cfg, opts, act.sh.shape[1],
-                                act.sh.device)
-    taps, outs, colors = [], [], []
-    for i, cam in enumerate(cams):
-        tap = torch.zeros((p, 2), dtype=params.xyz.dtype,
-                          device=params.xyz.device, requires_grad=True)
-        out = render(**act._asdict(), camera=cam, bg=bg, opts=opts,
+def _render_strips(act, sh_mask, cams: Sequence[CameraArrays],
+                   opts: RenderOptions, intrinsics, strips: int, lo: int,
+                   hi: int, *, bg, tex, mark):
+    """Render camera-strips lo..hi-1 of the batch `cams` (strip g is strip
+    g % strips of camera g // strips, rendered as its window of the frame,
+    `parallel/strips.py:strip_windows`) from the activated cloud `act`,
+    each with a zero viewspace tap (its gradient is the densification
+    statistic) and the sky of `tex` composited (rays from the camera's row
+    of `intrinsics`, moved to the window): (render outputs, taps, colours,
+    alphas), the colours and alphas cut to the strip's rows."""
+    windows = strip_windows(opts, strips) if strips > 1 else [opts]
+    crops = window_rows(opts.height, strips)
+    p = act.means3d.shape[0]
+    outs, taps, colors, alphas = [], [], [], []
+    for g in range(lo, hi):
+        cam, s = cams[g // strips], g % strips
+        tap = torch.zeros((p, 2), dtype=act.means3d.dtype,
+                          device=act.means3d.device, requires_grad=True)
+        out = render(**act._asdict(), camera=cam, bg=bg, opts=windows[s],
                      sh_mask=sh_mask, mean2d_tap=tap, mark=mark)
         if mark:
             node = out.color.grad_fn          # the Blend backward
@@ -192,23 +181,149 @@ def train_step(state: GaussianState, step: int,
                 lambda *_: mark("blend_backward_start"))
             node.register_hook(lambda *_: mark("blend_backward"))
         color = out.color
-        if has_env:
-            color = envmap_lib.composite_sky(color, out.alpha, tex,
-                                             cam.viewmatrix, intrinsics[i])
+        if tex is not None:
+            color = envmap_lib.composite_sky(
+                color, out.alpha, tex, cam.viewmatrix,
+                window_intrinsics(intrinsics[g // strips], windows[s]))
         outs.append(out)
-        colors.append(color)
         taps.append(tap)
+        colors.append(color[crops[s]:])
+        alphas.append(out.alpha[crops[s]:])
+    return outs, taps, colors, alphas
 
+
+def _join_frames(parts: Sequence[torch.Tensor], strips: int):
+    """Full frames from camera-major strips: the rows of each run of
+    `strips` consecutive parts, top to bottom."""
+    if strips == 1:
+        return list(parts)
+    return [torch.cat(list(parts[i:i + strips]), dim=0)
+            for i in range(0, len(parts), strips)]
+
+
+def _fold_strips(x: torch.Tensor, strips: int, how: str) -> torch.Tensor:
+    """Per camera-strip (B·strips, ...) → per camera (B, ...) by `how`
+    ("any", "sum" or "amax") over each camera's strips
+    (`fourdgs_tpu/engine/step.py:256-268`)."""
+    if strips == 1:
+        return x
+    return getattr(x.reshape((-1, strips) + x.shape[1:]), how)(dim=1)
+
+
+def _batch_mean(values: Sequence[torch.Tensor], b: int) -> torch.Tensor:
+    """sum(values) / b: the mean of `values` where they are the whole
+    batch of b."""
+    return torch.mean(torch.stack(list(values))) * (len(values) / b)
+
+
+def _all_reduce(mesh: Mesh, leaves, vis, tap, radii, floats, ints):
+    """Over the ranks of `mesh`: the sum of the gradients of `leaves`
+    (written back to their .grad), of the per-camera `vis` and `tap` and
+    of the scalars `floats`; the largest `radii` and integer scalars
+    `ints`. Returns (vis, tap, radii, floats, ints) reduced, vis as a
+    bool."""
+    grads = [_grad_or_zeros(x) for x in leaves]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [
+        tap.reshape(-1), vis.to(tap.dtype).reshape(-1),
+        torch.stack([torch.as_tensor(v, dtype=tap.dtype, device=tap.device)
+                     for v in floats])])
+    top = torch.cat([radii.reshape(-1), torch.stack([
+        torch.as_tensor(v, dtype=radii.dtype, device=radii.device)
+        for v in ints])])
+    dist.all_reduce(flat, group=mesh.group)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.group)
+    parts = torch.split(flat, [g.numel() for g in grads]
+                        + [tap.numel(), vis.numel(), len(floats)])
+    for x, g in zip(leaves, parts):
+        x.grad = g.view_as(x)
+    return (parts[-2].view(vis.shape) > 0, parts[-3].view_as(tap),
+            top[:radii.numel()].view_as(radii), parts[-1],
+            top[radii.numel():])
+
+
+def train_step(state: GaussianState, step: int,
+               cams: Sequence[CameraArrays], gt: torch.Tensor,
+               alpha_mask: torch.Tensor, bg: torch.Tensor, cfg: StepConfig,
+               opts: RenderOptions, env: envmap_lib.EnvMapState | None = None,
+               intrinsics: torch.Tensor | None = None, mark=None,
+               strips: int = 1, mesh: Mesh | None = None):
+    """One optimizer step over the camera batch `cams` (B cameras; gt
+    (B, H, W, 3), alpha_mask (B, H, W), bg (3,)). With cfg.env_map_res > 0
+    the sky of `env` is composited into each camera's colour before the
+    loss (rays from `intrinsics` (B, 4) [fl_x, fl_y, cx, cy]) and the map
+    takes its own Adam step. Returns (new state, new env, StepMetrics);
+    nothing is changed in place.
+
+    strips > 1: each camera renders as `strips` horizontal strips, each
+    as its window of the frame (`parallel/strips.py:strip_windows`) cut
+    to its H/strips rows, one blend per strip; the strips are joined into
+    full frames before the loss, so that SSIM windows cross the strip
+    boundaries and the math is that of the full frame. (The JAX step
+    takes B·strips strip cameras instead, `parallel/strips.py` says why
+    the port does not.)
+
+    mesh (`parallel/mesh.py:Mesh`): the data-parallel step. Every rank
+    passes the whole batch and renders its contiguous share of the
+    B·strips camera-strips; the gradients, statistics and metrics are
+    reduced over the ranks, and every rank returns what one process
+    returns for the whole batch. B·strips must divide by the mesh size
+    (else ValueError). Where a camera's strips lie on two ranks, the strip
+    colours are all-gathered, with their gradients, before its loss.
+
+    `mark`, if given, is called with a name as soon as the work of each
+    stage is issued, for timing: `render`'s marks for each camera-strip
+    (preprocess, binning, blend), then "loss" (photometric losses),
+    "knn" (the rigid and motion losses), and in the backward
+    "blend_backward_start" and "blend_backward" around each blend
+    backward (cotangents and K2), "backward" at its end, with a mesh
+    "all_reduce_start" and "all_reduce" around the collectives, and
+    "update" (statistics and Adam)."""
+    has_env = cfg.env_map_res > 0
+    if has_env and (env is None or intrinsics is None):
+        raise ValueError("env_map_res > 0 needs the env map and the "
+                         "cameras' intrinsics")
+    b = len(cams)
+    size, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+    if (b * strips) % size:
+        raise ValueError(f"batch_size*strips {b * strips} not divisible by "
+                         f"mesh size {size}")
+    per = b * strips // size
+    lo, hi = rank * per, (rank + 1) * per
+    # The cameras whose strips this rank renders: it takes their losses
+    # (they read its strips), and reports those whose first strip it holds.
+    first_cam, last_cam = lo // strips, (hi - 1) // strips
+    mine = [c - first_cam for c in range(first_cam, last_cam + 1)
+            if c * strips >= lo]
+
+    params = GaussianParams(*(x.detach().requires_grad_() for x in
+                              state.params))
+    tex = env.texture.detach().requires_grad_() if has_env else None
+    p = params.xyz.shape[0]
+    act = activate(params, state.n_active)
+    sh_mask = sh_annealing_mask(step, cfg, opts, act.sh.shape[1],
+                                act.sh.device)
+    outs, taps, colors, alphas = _render_strips(
+        act, sh_mask, cams, opts, intrinsics, strips, lo, hi, bg=bg,
+        tex=tex, mark=mark)
+    if per % strips:                       # a camera's strips on two ranks
+        span = slice(first_cam * strips, (last_cam + 1) * strips)
+        colors = list(gather_strips(torch.stack(colors), mesh))[span]
+        if cfg.lambda_opa_mask > 0:
+            alphas = list(gather_strips(torch.stack(alphas), mesh))[span]
+    frames = _join_frames(colors, strips)
     per_cam = [loss_lib.photometric_loss(c, g, cfg.lambda_dssim)
-               for c, g in zip(colors, gt)]
-    loss = torch.mean(torch.stack([c[0] for c in per_cam]))
+               for c, g in zip(frames, gt[first_cam:last_cam + 1])]
+    loss = _batch_mean([c[0] for c in per_cam], b)
+    opa = []
     if cfg.lambda_opa_mask > 0:
-        loss = loss + cfg.lambda_opa_mask * torch.mean(torch.stack([
-            loss_lib.opacity_mask_loss(o.alpha, m)
-            for o, m in zip(outs, alpha_mask)]))
+        opa = [loss_lib.opacity_mask_loss(a, m) for a, m in zip(
+            _join_frames(alphas, strips), alpha_mask[first_cam:last_cam + 1])]
+        loss = loss + cfg.lambda_opa_mask * _batch_mean(opa, b)
     if mark:
         mark("loss")
-    rigid, motion = _motion_losses(act, state.n_active, cfg)
+    zero = torch.zeros((), device=params.xyz.device)
+    rigid, motion = (_motion_losses(act, state.n_active, cfg) if rank == 0
+                     else (zero, zero))
     loss = loss + cfg.lambda_rigid * rigid + cfg.lambda_motion * motion
     if mark:
         mark("knn")
@@ -217,16 +332,60 @@ def train_step(state: GaussianState, step: int,
     if mark:
         mark("backward")
 
+    def reported(values):
+        """This rank's share of the batch mean of `values` (one per camera
+        whose loss it took)."""
+        return _batch_mean([values[i] for i in mine], b) if mine else zero
+
+    vis = torch.stack([o.visible for o in outs])    # (camera-strips, P)
+    tap = torch.stack([t.grad for t in taps])
+    radii = torch.stack([o.radii for o in outs])
+    metrics = dict(
+        loss=loss.detach(), l1=reported([c[1] for c in per_cam]).detach(),
+        ssim_loss=reported([c[2] for c in per_cam]).detach(),
+        psnr=(loss_lib.psnr(frames[-1].detach(), gt[b - 1])
+              if lo <= (b - 1) * strips < hi else zero),
+        rigid=rigid.detach(), motion=motion.detach(),
+        instances_dropped=sum(o.instances_dropped for o in outs),
+        num_rendered=max(o.num_rendered for o in outs),
+        max_per_tile=torch.stack([o.max_per_tile for o in outs]).max())
+    if mesh is not None:
+        # This rank's strips in the whole batch, zeros elsewhere.
+        vis, tap, radii = (torch.zeros((b * strips,) + x.shape[1:],
+                                       dtype=x.dtype, device=x.device)
+                           .index_copy(0, torch.arange(lo, hi,
+                                                       device=x.device), x)
+                           for x in (vis, tap, radii))
+    vis = _fold_strips(vis, strips, "any")                 # (B, P)
+    tap = _fold_strips(tap, strips, "sum")
+    radii = _fold_strips(radii, strips, "amax")
+    if mesh is not None:
+        total = reported([c[0] for c in per_cam])
+        if opa:
+            total = total + cfg.lambda_opa_mask * reported(opa)
+        metrics["loss"] = (total + cfg.lambda_rigid * rigid
+                           + cfg.lambda_motion * motion).detach()
+        floats = ("loss", "l1", "ssim_loss", "psnr", "rigid", "motion",
+                  "instances_dropped")
+        if mark:
+            mark("all_reduce_start")
+        vis, tap, radii, summed, top = _all_reduce(
+            mesh, list(params) + ([tex] if has_env else []), vis, tap, radii,
+            [metrics[k] for k in floats],
+            [metrics["num_rendered"], metrics["max_per_tile"]])
+        if mark:
+            mark("all_reduce")
+        metrics.update(zip(floats, summed))
+        metrics.update(instances_dropped=int(metrics["instances_dropped"]),
+                       num_rendered=int(top[0]), max_per_tile=top[1])
+
     # --- densification statistics (train.py:164-183, 231-238) -----------
-    b = len(cams)
-    vis = torch.stack([o.visible for o in outs])                 # (B, P)
     vis_count = vis.to(torch.int32).sum(dim=0)
     denom = torch.clamp(vis_count.to(torch.float32), min=1.0)
-    tap_norm = torch.linalg.vector_norm(
-        torch.stack([t.grad for t in taps]), dim=-1)              # (B, P)
+    tap_norm = torch.linalg.vector_norm(tap, dim=-1)             # (B, P)
     point_grad = tap_norm.sum(dim=0) * b / denom
     t_grad = _grad_or_zeros(params.t)[:, 0] * b / denom
-    radii_max = torch.stack([o.radii for o in outs]).max(dim=0).values
+    radii_max = radii.max(dim=0).values
     new = add_densification_stats(state, point_grad, t_grad, vis_count > 0,
                                   radii_max)
 
@@ -244,15 +403,4 @@ def train_step(state: GaussianState, step: int,
     new = new._replace(params=new_params, adam=new_adam)
     if mark:
         mark("update")
-
-    metrics = StepMetrics(
-        loss=loss.detach(),
-        l1=torch.mean(torch.stack([c[1] for c in per_cam])).detach(),
-        ssim_loss=torch.mean(torch.stack([c[2] for c in per_cam])).detach(),
-        psnr=loss_lib.psnr(colors[-1].detach(), gt[-1]),
-        num_rendered=max(o.num_rendered for o in outs),
-        max_per_tile=torch.stack([o.max_per_tile for o in outs]).max(),
-        instances_dropped=sum(o.instances_dropped for o in outs),
-        n_active=state.n_active,
-        rigid=rigid.detach(), motion=motion.detach())
-    return new, env, metrics
+    return new, env, StepMetrics(n_active=state.n_active, **metrics)

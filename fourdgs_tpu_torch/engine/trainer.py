@@ -21,6 +21,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig, sh_degree_t
 from ..data.pointcloud import write_ply
@@ -54,11 +55,35 @@ def active_rows(state: GaussianState) -> GaussianState:
 
 class Trainer(Evaluator):
     """Trains a scene from a config (`cfg` as `load_config` gives it) on
-    `device`; `scene` is read from `cfg.model.source_path` unless given."""
+    `device`; `scene` is read from `cfg.model.source_path` unless given.
+
+    Under an open process group (`parallel/multihost.py:initialize`, one
+    rank per device), every rank builds the same Trainer and draws the
+    same batches; the cloud starts as rank 0's on every rank, and the
+    step runs data-parallel over the group's ranks (`parallel/mesh.py`),
+    a camera's strips spread over them, and so do a view's strips where
+    they divide (JAX `fourdgs_tpu/engine/trainer.py:547-561`). That needs
+    cfg.data_axis 0 or the world size and batch_size·strips divisible by
+    the world (the JAX trainer's rule, `:403-405`); a group of more than
+    one rank that breaks it raises ValueError, as each rank would
+    otherwise train a replica of its own. Only rank 0 writes:
+    checkpoints, metrics.jsonl, TensorBoard events, panels and its log
+    lines. Without a group, strips render as the full frame, which they
+    equal."""
 
     def __init__(self, cfg: TrainConfig, scene: Optional[SceneInfo] = None,
                  device="cuda", verbose: bool = True):
-        super().__init__(cfg, scene=scene, device=device, verbose=verbose)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        n_dev = min(cfg.data_axis or world, world)
+        if n_dev != world or (cfg.batch_size * cfg.strips) % world:
+            raise ValueError(
+                f"{world} ranks train data-parallel only with data_axis 0 "
+                f"or {world} and batch_size*strips divisible by {world}; "
+                f"got data_axis {cfg.data_axis}, batch_size*strips "
+                f"{cfg.batch_size * cfg.strips}")
+        self.is_writer = world == 1 or dist.get_rank() == 0
+        super().__init__(cfg, scene=scene, device=device,
+                         verbose=verbose and self.is_writer)
         opt = cfg.optimization
         self.spatial_lr_scale = float(self.scene.radius)
         sh_channels = num_sh_channels(cfg.model.sh_degree, sh_degree_t(cfg),
@@ -109,18 +134,38 @@ class Trainer(Evaluator):
         self._ckpt_pool = ThreadPoolExecutor(max_workers=1)
         self._saves = []
         self._gt_cache = None      # (images, alphas) on the device
-        self.metrics_log = MetricsLogger(cfg.model.model_path)
+        self.metrics_log = MetricsLogger(cfg.model.model_path
+                                         if self.is_writer else None)
         # TensorBoard event file in the model dir (the reference's
         # SummaryWriter(args.model_path), `train.py:255-263`): the step
         # scalars here, the evaluation scalars, histogram and panels in
         # `Evaluator.evaluate`.
-        if cfg.model.model_path:
+        if cfg.model.model_path and self.is_writer:
             self.tb = TBWriter(cfg.model.model_path)
             self._dump_scene_artifacts()
         if cfg.model.loaded_pth:
             self._load_initial_cloud(cfg.model.loaded_pth)
         if cfg.start_checkpoint:
             self.load(cfg.start_checkpoint)
+        if dist.is_initialized():
+            self._join_mesh()
+
+    def _join_mesh(self):
+        """Rank 0's cloud and env map on every rank, and the data axis over
+        the group's ranks."""
+        from ..parallel import make_mesh, replicate
+
+        self.mesh = make_mesh()
+        state = [x for tree in (self.gauss.params, self.gauss.adam.mu,
+                                self.gauss.adam.nu) for x in tree]
+        state += [self.gauss.adam.count] + list(self.gauss[2:])
+        if self.env is not None:
+            state += list(self.env)
+        replicate(self.mesh, state)
+        self.n_active = int(self.gauss.n_active)
+        self.log(f"data-parallel train step over {self.mesh.size} ranks"
+                 + (f" ({self.cfg.strips} strips/frame)"
+                    if self.cfg.strips > 1 else ""))
 
     def close(self):
         """Join the checkpoint writes, stop both worker pools and close
@@ -193,9 +238,12 @@ class Trainer(Evaluator):
 
     # ------------------------------------------------------------------ IO
     def save(self, path: str, sync: bool = True):
-        """Checkpoint to `path`. The device → host copy happens here; with
-        sync=False pickling and the disk write run on a background worker
-        (in submission order) that `wait_for_saves` joins."""
+        """Checkpoint to `path` (rank 0 only under a process group). The
+        device → host copy happens here; with sync=False pickling and the
+        disk write run on a background worker (in submission order) that
+        `wait_for_saves` joins."""
+        if not self.is_writer:
+            return
         fut = ckpt_lib.save_checkpoint(
             path, self.gauss, self.env, self.step,
             extra={"best_psnr": self.best_psnr,
@@ -234,7 +282,10 @@ class Trainer(Evaluator):
     # ---------------------------------------------------------- batching
     def _batch_arrays(self, idx: List[int]):
         """(cameras, gt, alpha, intrinsics (B, 4)) of train cameras `idx`;
-        with the GT cache, gt is the index list and alpha None."""
+        with the GT cache, gt is the index list and alpha None. With
+        cfg.strips > 1 under a process group, the step cuts each camera
+        into its strips itself (the JAX trainer expands them here,
+        `trainer.py:333-344`)."""
         cams = [self.scene.train_cameras[i] for i in idx]
         if self._gt_cache is not None:
             gt, alpha = idx, None
@@ -344,7 +395,8 @@ class Trainer(Evaluator):
                 gt, alpha = self._gt_cache[0][idx], self._gt_cache[1][idx]
             self.gauss, self.env, metrics = train_step(
                 self.gauss, it, cams, gt, alpha, self.bg, self.step_cfg,
-                self.opts, env=self.env, intrinsics=intr)
+                self.opts, env=self.env, intrinsics=intr,
+                strips=self.cfg.strips if self.mesh else 1, mesh=self.mesh)
             self.step = it
 
             # Densification (train.py:231-244). The active count is a host
@@ -361,7 +413,7 @@ class Trainer(Evaluator):
                 self.gauss = dz.reset_opacity(self.gauss)
 
             loss = float(metrics.loss)
-            if not np.isfinite(loss) and (debug or (
+            if not np.isfinite(loss) and self.is_writer and (debug or (
                     self.cfg.debug_from >= 0 and it >= self.cfg.debug_from)):
                 self._dump_debug_snapshot(it, cams, gt, alpha, intr)
             ema_loss = 0.4 * loss + 0.6 * ema_loss if it > 1 else loss
@@ -415,9 +467,9 @@ class Trainer(Evaluator):
                  with_msssim: bool = False, train_views: int = 0,
                  save_panels: bool = False) -> float:
         """`Evaluator.evaluate`, with the mean test PSNR logged to
-        metrics.jsonl."""
+        metrics.jsonl; panels from rank 0 only."""
         psnr = super().evaluate(max_cameras, with_msssim, train_views,
-                                save_panels)
+                                save_panels and self.is_writer)
         self.metrics_log.log(self.step, eval_psnr=psnr)
         return psnr
 

@@ -39,6 +39,13 @@ class RenderOptions(NamedTuple):
     time_duration: float = 1.0
     prefilter_var: float = -1.0
     scale_modifier: float = 1.0
+    # A window of rows of a taller frame (a strip, `parallel/strips.py`),
+    # rendered with the frame's camera: the frame has frame_height rows
+    # (0: `height`) and the window starts at its row row0 (a multiple of
+    # the tile size). Positions project in the frame and shift by row0,
+    # exactly, so that the window's pixels are the frame's bit for bit.
+    frame_height: int = 0
+    row0: int = 0
 
     @property
     def tiles_x(self) -> int:
@@ -147,11 +154,13 @@ def preprocess(
     depth = gm.view_z(shifted, camera.viewmatrix)
     in_front = depth > gm.NEAR_PLANE
 
-    wh = torch.tensor([opts.width, opts.height], dtype=means3d.dtype,
-                      device=means3d.device)
+    wh = torch.tensor([opts.width, opts.frame_height or opts.height],
+                      dtype=means3d.dtype, device=means3d.device)
     xy, _ = gm.project_points_columnar(shifted, camera.projmatrix, wh)
     if mean2d_tap is not None:
         xy = xy + mean2d_tap * (wh * 0.5)
+    if opts.row0:
+        xy = xy - xy.new_tensor([0.0, float(opts.row0)])
     cov2d = gm.ewa_project_columnar(shifted, cov3, camera.viewmatrix,
                                     camera.focal, camera.tanfov)
     conic, radius_f, conic_ok = gm.cov2d_to_conic_radius(cov2d)

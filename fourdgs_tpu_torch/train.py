@@ -10,6 +10,13 @@ Runs on `--device` (default `cuda`); it does not carry on on the CPU when
 that device is missing. Writes into the config's model_path: input.ply,
 cameras.json, metrics.jsonl, chkpnt{it}.pkl at the save iterations,
 chkpnt_best.pkl at the test iterations, chkpnt_final.pkl at the end.
+
+Under torchrun (WORLD_SIZE > 1 in the environment) each process opens the
+process group from the environment (NCCL on CUDA, gloo with --device cpu),
+takes the device cuda:LOCAL_RANK, and trains data-parallel
+(`engine/trainer.py:Trainer`); rank 0 writes:
+
+    torchrun --nproc_per_node 4 -m fourdgs_tpu_torch.train --config ...
 """
 
 from __future__ import annotations
@@ -131,10 +138,28 @@ def main(argv=None) -> int:
         return 2
     torch.autograd.set_detect_anomaly(args.detect_anomaly)
 
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return _train(args, cfg, device)
+    import torch.distributed as dist
+
+    from .parallel import multihost
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    multihost.initialize(device=device)
+    try:
+        return _train(args, cfg, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, cfg, device) -> int:
     from .engine.trainer import Trainer
 
     with Trainer(cfg, device=device, verbose=not args.quiet) as trainer:
-        if args.profile_dir:
+        if args.profile_dir and trainer.is_writer:
             from torch.profiler import ProfilerActivity, profile
 
             activities = [ProfilerActivity.CPU]

@@ -32,6 +32,7 @@ from fourdgs_tpu_torch.models import ply_io as port_ply
 
 from torch_helpers import SYNTH_GATE as FIXTURE
 from torch_helpers import SYNTH_GATE_OVERRIDES as OVERRIDES
+from torch_helpers import jax_eval_fn
 from torch_helpers import jax_synth_gate_state as _jax_state
 
 
@@ -42,18 +43,6 @@ def checkpoint(tmp_path_factory):
     jax_ckpt.save_checkpoint(path, state, env, 40,
                              extra={"best_psnr": 21.5})
     return path
-
-
-def _jax_eval_fn(cfg, opts, env, eval_infer=False):
-    """The JAX trainer's eval_fn, from a Trainer whose __init__ is not
-    run: only the attributes `_make_eval_render` reads are set."""
-    tr = object.__new__(jax_trainer.Trainer)
-    tr.cfg, tr.env = cfg, env
-    tr.inst_capacity, tr.tile_capacity, tr.chunk = 16384, 1024, 32
-    tr.bg = jnp.zeros(3, jnp.float32)
-    tr.backend = "pallas_interpret" if eval_infer else "xla"
-    tr.dummy_cap, tr.eval_infer = None, eval_infer
-    return tr._make_eval_render(opts)
 
 
 def _both(checkpoint, cov=False, shs=False, rot_4d=True, infer=False):
@@ -73,7 +62,7 @@ def _both(checkpoint, cov=False, shs=False, rot_4d=True, infer=False):
                                   time_duration=(0.0, 1.0), seed=jcfg.seed)
     jcam = jscene.test_cameras[1]
     gauss, env, _, _ = jax_ckpt.load_checkpoint(checkpoint)
-    ref = _jax_eval_fn(jcfg, JaxOptions(
+    ref = jax_eval_fn(jcfg, JaxOptions(
         height=jcam.height, width=jcam.width, gaussian_dim=4, rot_4d=rot_4d,
         time_duration=1.0), env, infer)(
             gauss, env.texture,
@@ -130,9 +119,17 @@ def test_load_reads_jax_checkpoint_with_envmap(checkpoint):
     # missing one is not found).
     with pytest.raises(FileNotFoundError):
         ev.load("somewhere/chkpnt7.pth")
-    cfg = port_config.load_config(None, dict(OVERRIDES, strips=2))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        port_eval.Evaluator(cfg, device="cpu")
+    # A config with strips is accepted where the frame's height divides
+    # (48 = 3 x 16; tests/test_torch_strips.py holds its views to the full
+    # frame), and a height that does not divide raises.
+    with pytest.raises(ValueError, match="not divisible by 5"):
+        port_eval.Evaluator(port_config.load_config(
+            None, dict(OVERRIDES, strips=5)), device="cpu", verbose=False)
+    cfg = port_config.load_config(None, dict(OVERRIDES, strips=3))
+    strips = port_eval.Evaluator(cfg, device="cpu", verbose=False)
+    strips.load(checkpoint)
+    assert strips.render_view(strips.scene.test_cameras[0])[0].shape == (
+        48, 48, 3)
 
 
 def test_evaluate_metrics_match_jax_losses(checkpoint, tmp_path):

@@ -4,10 +4,12 @@ checkpoint written by the JAX package (through GaussianRenderer, and
 through a config file, a scene on disk, Evaluator and render_cli),
 training that scene through the CLI (`fourdgs_tpu_torch.train`),
 generating a synthetic dataset and exporting and importing a reference
-.pth load neither. PyYAML and Pillow are imported by the functions that
-need them, not when a module is imported."""
+.pth load neither, and neither do two ranks of the data-parallel step
+(tests/torch_parallel_worker.py). PyYAML and Pillow are imported by the
+functions that need them, not when a module is imported."""
 
 import os
+import socket
 import subprocess
 import sys
 
@@ -101,7 +103,8 @@ REQUIRED = ("config", "render_cli", "viewer", "train", "data.scene",
             "engine.trainer", "models.densify", "models.envmap",
             "models.ply_io", "utils.image", "utils.metrics_log",
             "gen_synth_dataset", "data.synth", "models.torch_import",
-            "utils.tb_writer")
+            "utils.tb_writer", "parallel.strips", "parallel.mesh",
+            "parallel.multihost", "ops.pointops", "utils.lpips", "data.n3v")
 
 
 def test_port_imports_no_jax(tmp_path, rng):
@@ -145,3 +148,41 @@ def test_port_imports_no_jax(tmp_path, rng):
     assert line.endswith("BANNED []"), line
     assert "EARLY []" in line, line
     assert int(line.split()[1]) >= 14 + len(REQUIRED)
+
+
+# The worker, run as __main__ under the same import block.
+BLOCKED_WORKER = CHILD[:CHILD.index("root = sys.argv[1]")] + r"""
+import runpy
+worker = sys.argv[1]
+sys.argv = sys.argv[1:]
+runpy.run_path(worker, run_name="__main__")
+loaded = sorted(m for m in sys.modules if banned(m))
+print("BANNED", loaded)
+"""
+
+
+def test_two_rank_worker_imports_no_jax(tmp_path):
+    """Both ranks of tests/torch_parallel_worker.py (the data-parallel
+    step, strips over ranks, the multihost helpers) with JAX and the JAX
+    package blocked; each wait has its own timeout."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    worker = os.path.join(ROOT, "tests", "torch_parallel_worker.py")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", BLOCKED_WORKER, worker, str(r), "2",
+         str(port), str(tmp_path / "result")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out[-4000:]
+        assert f"RANK{r} OK" in out and "BANNED []" in out, out[-2000:]

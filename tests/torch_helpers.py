@@ -3,6 +3,7 @@ the same numpy inputs handed to the JAX package and to the port, on the
 CPU."""
 
 import os
+import socket
 
 import numpy as np
 import pytest
@@ -237,6 +238,22 @@ def jax_synth_gate_state(seed=0, p=300):
     return state._replace(params=params), env
 
 
+def jax_eval_fn(cfg, opts, env, eval_infer=False):
+    """The JAX trainer's eval_fn at `opts`, from a Trainer whose __init__
+    is not run: only the attributes `_make_eval_render` reads are set."""
+    import jax.numpy as jnp
+
+    from fourdgs_tpu.engine import trainer as jax_trainer
+
+    tr = object.__new__(jax_trainer.Trainer)
+    tr.cfg, tr.env = cfg, env
+    tr.inst_capacity, tr.tile_capacity, tr.chunk = 16384, 1024, 32
+    tr.bg = jnp.zeros(3, jnp.float32)
+    tr.backend = "pallas_interpret" if eval_infer else "xla"
+    tr.dummy_cap, tr.eval_infer = None, eval_infer
+    return tr._make_eval_render(opts)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """One torch thread for a module's tests (import it into the module to
@@ -246,3 +263,10 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
