@@ -192,7 +192,7 @@ from fourdgs_tpu_torch.parallel import multihost  # noqa: E402
 from fourdgs_tpu_torch.parallel.strips import strip_windows  # noqa: E402
 from fourdgs_tpu_torch.render import (  # noqa: E402
     GaussianRenderer, blend_inputs, render)
-from fourdgs_tpu_torch.utils import losses  # noqa: E402
+from fourdgs_tpu_torch.utils import losses, tracing  # noqa: E402
 from fourdgs_tpu_torch.utils.tb_writer import read_tags  # noqa: E402
 from fourdgs_tpu_torch.viewer import ViewerServer  # noqa: E402
 
@@ -269,14 +269,14 @@ def check(ok: bool, msg: str):
 
 
 def zero_launches():
-    blend.blend_forward.launches = blend.blend_backward.launches = 0
-    blend.blend_infer.launches = 0
+    tracing.reset()
 
 
 def read_launches():
-    return dict(k1=blend.blend_forward.launches,
-                k2=blend.blend_backward.launches,
-                k3=blend.blend_infer.launches)
+    """K1, K2 and K3 launches since `zero_launches`, from the package's
+    counters (`utils/tracing.py`)."""
+    counts = tracing.totals()
+    return {k: counts.get(f"launches.{k}", 0) for k in ("k1", "k2", "k3")}
 
 
 def card_line() -> str:
@@ -524,13 +524,13 @@ def kernel_cases(device):
                       num_rendered=bins.num_rendered,
                       max_per_tile=int(bins.max_per_tile),
                       empty_tiles=int((counts == 0).sum()),
-                      launches=blend.blend_forward.launches,
+                      launches=read_launches()["k1"],
                       k2_grad_err=k2_err, k2_pairs=pairs,
-                      k2_launches=blend.blend_backward.launches,
+                      k2_launches=read_launches()["k2"],
                       k3_accum_err=k3_report["accum_err"],
                       k3_t_final_err=k3_report["t_final_err"],
                       k3_vs_k1=k3_diff, k3_cull=cull_report(k3_pairs),
-                      k3_launches=blend.blend_infer.launches)
+                      k3_launches=read_launches()["k3"])
         emit({"phase": "kernel_vs_plain", **report})
         check_report(report, name)
         check_infer_report(k3_report, name)
@@ -546,9 +546,10 @@ def kernel_cases(device):
             check(0 < k3_pairs["warp_kept"] < k3_pairs["warp_live"]
                   and k3_pairs["used"] > 0, f"{name}: the cull decides "
                   f"nothing here ({cull_report(k3_pairs)})")
-    check(blend.blend_forward.launches >= len(cases), "K1 never launched")
-    check(blend.blend_backward.launches >= len(cases), "K2 never launched")
-    check(blend.blend_infer.launches >= len(cases), "K3 never launched")
+    launches = read_launches()
+    check(launches["k1"] >= len(cases), "K1 never launched")
+    check(launches["k2"] >= len(cases), "K2 never launched")
+    check(launches["k3"] >= len(cases), "K3 never launched")
 
 
 # --------------------------------------------------------------------------

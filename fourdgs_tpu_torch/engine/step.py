@@ -30,6 +30,7 @@ from ..parallel.mesh import Mesh, gather_strips
 from ..parallel.strips import strip_windows, window_intrinsics, window_rows
 from ..render import render
 from ..utils import losses as loss_lib
+from ..utils import tracing
 
 
 class StepConfig(NamedTuple):
@@ -277,7 +278,9 @@ def train_step(state: GaussianState, step: int,
     "blend_backward_start" and "blend_backward" around each blend
     backward (cotangents and K2), "backward" at its end, with a mesh
     "all_reduce_start" and "all_reduce" around the collectives, and
-    "update" (statistics and Adam)."""
+    "update" (statistics and Adam). Under a recording profiler the stages
+    are the spans step.render, step.loss, step.rigid, step.backward and
+    step.update (`utils/tracing.py`)."""
     has_env = cfg.env_map_res > 0
     if has_env and (env is None or intrinsics is None):
         raise ValueError("env_map_res > 0 needs the env map and the "
@@ -299,108 +302,109 @@ def train_step(state: GaussianState, step: int,
                               state.params))
     tex = env.texture.detach().requires_grad_() if has_env else None
     p = params.xyz.shape[0]
-    act = activate(params, state.n_active)
-    sh_mask = sh_annealing_mask(step, cfg, opts, act.sh.shape[1],
-                                act.sh.device)
-    outs, taps, colors, alphas = _render_strips(
-        act, sh_mask, cams, opts, intrinsics, strips, lo, hi, bg=bg,
-        tex=tex, mark=mark)
-    if per % strips:                       # a camera's strips on two ranks
-        span = slice(first_cam * strips, (last_cam + 1) * strips)
-        colors = list(gather_strips(torch.stack(colors), mesh))[span]
+    with tracing.span("step.render"):
+        act = activate(params, state.n_active)
+        sh_mask = sh_annealing_mask(step, cfg, opts, act.sh.shape[1],
+                                    act.sh.device)
+        outs, taps, colors, alphas = _render_strips(
+            act, sh_mask, cams, opts, intrinsics, strips, lo, hi, bg=bg,
+            tex=tex, mark=mark)
+    with tracing.stage("step.loss", mark, "loss"):
+        if per % strips:                   # a camera's strips on two ranks
+            span = slice(first_cam * strips, (last_cam + 1) * strips)
+            colors = list(gather_strips(torch.stack(colors), mesh))[span]
+            if cfg.lambda_opa_mask > 0:
+                alphas = list(gather_strips(torch.stack(alphas), mesh))[span]
+        frames = _join_frames(colors, strips)
+        per_cam = [loss_lib.photometric_loss(c, g, cfg.lambda_dssim)
+                   for c, g in zip(frames, gt[first_cam:last_cam + 1])]
+        loss = _batch_mean([c[0] for c in per_cam], b)
+        opa = []
         if cfg.lambda_opa_mask > 0:
-            alphas = list(gather_strips(torch.stack(alphas), mesh))[span]
-    frames = _join_frames(colors, strips)
-    per_cam = [loss_lib.photometric_loss(c, g, cfg.lambda_dssim)
-               for c, g in zip(frames, gt[first_cam:last_cam + 1])]
-    loss = _batch_mean([c[0] for c in per_cam], b)
-    opa = []
-    if cfg.lambda_opa_mask > 0:
-        opa = [loss_lib.opacity_mask_loss(a, m) for a, m in zip(
-            _join_frames(alphas, strips), alpha_mask[first_cam:last_cam + 1])]
-        loss = loss + cfg.lambda_opa_mask * _batch_mean(opa, b)
-    if mark:
-        mark("loss")
-    zero = torch.zeros((), device=params.xyz.device)
-    rigid, motion = (_motion_losses(act, state.n_active, cfg) if rank == 0
-                     else (zero, zero))
-    loss = loss + cfg.lambda_rigid * rigid + cfg.lambda_motion * motion
-    if mark:
-        mark("knn")
+            opa = [loss_lib.opacity_mask_loss(a, m) for a, m in zip(
+                _join_frames(alphas, strips),
+                alpha_mask[first_cam:last_cam + 1])]
+            loss = loss + cfg.lambda_opa_mask * _batch_mean(opa, b)
+    with tracing.stage("step.rigid", mark, "knn"):
+        zero = torch.zeros((), device=params.xyz.device)
+        rigid, motion = (_motion_losses(act, state.n_active, cfg)
+                         if rank == 0 else (zero, zero))
+        loss = loss + cfg.lambda_rigid * rigid + cfg.lambda_motion * motion
 
-    loss.backward()
-    if mark:
-        mark("backward")
+    with tracing.stage("step.backward", mark, "backward"):
+        loss.backward()
 
-    def reported(values):
-        """This rank's share of the batch mean of `values` (one per camera
-        whose loss it took)."""
-        return _batch_mean([values[i] for i in mine], b) if mine else zero
+    with tracing.stage("step.update", mark, "update"):
+        def reported(values):
+            """This rank's share of the batch mean of `values` (one per
+            camera whose loss it took)."""
+            return _batch_mean([values[i] for i in mine], b) if mine else zero
 
-    vis = torch.stack([o.visible for o in outs])    # (camera-strips, P)
-    tap = torch.stack([t.grad for t in taps])
-    radii = torch.stack([o.radii for o in outs])
-    metrics = dict(
-        loss=loss.detach(), l1=reported([c[1] for c in per_cam]).detach(),
-        ssim_loss=reported([c[2] for c in per_cam]).detach(),
-        psnr=(loss_lib.psnr(frames[-1].detach(), gt[b - 1])
-              if lo <= (b - 1) * strips < hi else zero),
-        rigid=rigid.detach(), motion=motion.detach(),
-        instances_dropped=sum(o.instances_dropped for o in outs),
-        num_rendered=max(o.num_rendered for o in outs),
-        max_per_tile=torch.stack([o.max_per_tile for o in outs]).max())
-    if mesh is not None:
-        # This rank's strips in the whole batch, zeros elsewhere.
-        vis, tap, radii = (torch.zeros((b * strips,) + x.shape[1:],
-                                       dtype=x.dtype, device=x.device)
-                           .index_copy(0, torch.arange(lo, hi,
-                                                       device=x.device), x)
-                           for x in (vis, tap, radii))
-    vis = _fold_strips(vis, strips, "any")                 # (B, P)
-    tap = _fold_strips(tap, strips, "sum")
-    radii = _fold_strips(radii, strips, "amax")
-    if mesh is not None:
-        total = reported([c[0] for c in per_cam])
-        if opa:
-            total = total + cfg.lambda_opa_mask * reported(opa)
-        metrics["loss"] = (total + cfg.lambda_rigid * rigid
-                           + cfg.lambda_motion * motion).detach()
-        floats = ("loss", "l1", "ssim_loss", "psnr", "rigid", "motion",
-                  "instances_dropped")
-        if mark:
-            mark("all_reduce_start")
-        vis, tap, radii, summed, top = _all_reduce(
-            mesh, list(params) + ([tex] if has_env else []), vis, tap, radii,
-            [metrics[k] for k in floats],
-            [metrics["num_rendered"], metrics["max_per_tile"]])
-        if mark:
-            mark("all_reduce")
-        metrics.update(zip(floats, summed))
-        metrics.update(instances_dropped=int(metrics["instances_dropped"]),
-                       num_rendered=int(top[0]), max_per_tile=top[1])
+        vis = torch.stack([o.visible for o in outs])    # (camera-strips, P)
+        tap = torch.stack([t.grad for t in taps])
+        radii = torch.stack([o.radii for o in outs])
+        metrics = dict(
+            loss=loss.detach(), l1=reported([c[1] for c in per_cam]).detach(),
+            ssim_loss=reported([c[2] for c in per_cam]).detach(),
+            psnr=(loss_lib.psnr(frames[-1].detach(), gt[b - 1])
+                  if lo <= (b - 1) * strips < hi else zero),
+            rigid=rigid.detach(), motion=motion.detach(),
+            instances_dropped=sum(o.instances_dropped for o in outs),
+            num_rendered=max(o.num_rendered for o in outs),
+            max_per_tile=torch.stack([o.max_per_tile for o in outs]).max())
+        if mesh is not None:
+            # This rank's strips in the whole batch, zeros elsewhere.
+            vis, tap, radii = (torch.zeros((b * strips,) + x.shape[1:],
+                                           dtype=x.dtype, device=x.device)
+                               .index_copy(0, torch.arange(lo, hi,
+                                                           device=x.device), x)
+                               for x in (vis, tap, radii))
+        vis = _fold_strips(vis, strips, "any")                 # (B, P)
+        tap = _fold_strips(tap, strips, "sum")
+        radii = _fold_strips(radii, strips, "amax")
+        if mesh is not None:
+            total = reported([c[0] for c in per_cam])
+            if opa:
+                total = total + cfg.lambda_opa_mask * reported(opa)
+            metrics["loss"] = (total + cfg.lambda_rigid * rigid
+                               + cfg.lambda_motion * motion).detach()
+            floats = ("loss", "l1", "ssim_loss", "psnr", "rigid", "motion",
+                      "instances_dropped")
+            if mark:
+                mark("all_reduce_start")
+            vis, tap, radii, summed, top = _all_reduce(
+                mesh, list(params) + ([tex] if has_env else []), vis, tap,
+                radii, [metrics[k] for k in floats],
+                [metrics["num_rendered"], metrics["max_per_tile"]])
+            if mark:
+                mark("all_reduce")
+            metrics.update(zip(floats, summed))
+            metrics.update(
+                instances_dropped=int(tracing.read(
+                    "step.all_reduce", metrics["instances_dropped"])),
+                num_rendered=tracing.read("step.all_reduce", top[0]),
+                max_per_tile=top[1])
 
-    # --- densification statistics (train.py:164-183, 231-238) -----------
-    vis_count = vis.to(torch.int32).sum(dim=0)
-    denom = torch.clamp(vis_count.to(torch.float32), min=1.0)
-    tap_norm = torch.linalg.vector_norm(tap, dim=-1)             # (B, P)
-    point_grad = tap_norm.sum(dim=0) * b / denom
-    t_grad = _grad_or_zeros(params.t)[:, 0] * b / denom
-    radii_max = radii.max(dim=0).values
-    new = add_densification_stats(state, point_grad, t_grad, vis_count > 0,
-                                  radii_max)
+        # --- densification statistics (train.py:164-183, 231-238) -------
+        vis_count = vis.to(torch.int32).sum(dim=0)
+        denom = torch.clamp(vis_count.to(torch.float32), min=1.0)
+        tap_norm = torch.linalg.vector_norm(tap, dim=-1)             # (B, P)
+        point_grad = tap_norm.sum(dim=0) * b / denom
+        t_grad = _grad_or_zeros(params.t)[:, 0] * b / denom
+        radii_max = radii.max(dim=0).values
+        new = add_densification_stats(state, point_grad, t_grad, vis_count > 0,
+                                      radii_max)
 
-    # --- Adam ------------------------------------------------------------
-    lrs = group_lrs(cfg, cfg.spatial_lr_scale, step)
-    active = torch.arange(p, device=params.xyz.device) < state.n_active
-    active = active & (step < cfg.iterations)
-    grads = GaussianParams(*(_grad_or_zeros(x) for x in params))
-    with torch.no_grad():
-        new_params, new_adam = adam_update(
-            GaussianParams(*(x.detach() for x in params)), grads,
-            state.adam, lrs, update_mask=active)
-        if has_env:
-            env = env_adam_update(env, _grad_or_zeros(tex), step, cfg)
-    new = new._replace(params=new_params, adam=new_adam)
-    if mark:
-        mark("update")
+        # --- Adam --------------------------------------------------------
+        lrs = group_lrs(cfg, cfg.spatial_lr_scale, step)
+        active = torch.arange(p, device=params.xyz.device) < state.n_active
+        active = active & (step < cfg.iterations)
+        grads = GaussianParams(*(_grad_or_zeros(x) for x in params))
+        with torch.no_grad():
+            new_params, new_adam = adam_update(
+                GaussianParams(*(x.detach() for x in params)), grads,
+                state.adam, lrs, update_mask=active)
+            if has_env:
+                env = env_adam_update(env, _grad_or_zeros(tex), step, cfg)
+        new = new._replace(params=new_params, adam=new_adam)
     return new, env, StepMetrics(n_active=state.n_active, **metrics)

@@ -32,6 +32,7 @@ from ..models.gaussians import (AdamState, GaussianParams, GaussianState,
                                 init_from_pcd)
 from ..ops.sh import num_sh_channels
 from ..utils.metrics_log import MetricsLogger
+from ..utils import tracing
 from ..utils.tb_writer import TBWriter
 from . import checkpoint as ckpt_lib
 from .evaluator import Evaluator, camera_intrinsics, fetch_gt
@@ -368,7 +369,8 @@ class Trainer(Evaluator):
         """Train from `self.step` to `num_iterations` (default the
         config's iterations): the reference loop and cadences
         (`trainer.py:754-912`). `on_step(it, StepMetrics)` is called after
-        each step. Returns the final state."""
+        each step, once the iteration's spans (`utils/tracing.py`) have
+        closed. Returns the final state."""
         opt = self.cfg.optimization
         total = num_iterations or opt.iterations
         test_iters = set(self.cfg.test_iterations)
@@ -389,49 +391,59 @@ class Trainer(Evaluator):
         it = first = self.step
         while it < total:
             it += 1
-            cams, gt, alpha, intr = next(stream)
-            if alpha is None:             # GT cache: gt holds the indices
-                idx = torch.as_tensor(gt, device=self.device)
-                gt, alpha = self._gt_cache[0][idx], self._gt_cache[1][idx]
-            self.gauss, self.env, metrics = train_step(
-                self.gauss, it, cams, gt, alpha, self.bg, self.step_cfg,
-                self.opts, env=self.env, intrinsics=intr,
-                strips=self.cfg.strips if self.mesh else 1, mesh=self.mesh)
+            tracing.begin_step(it)
+            t_iter = time.perf_counter_ns()
+            with tracing.span("train.batch_wait"):
+                cams, gt, alpha, intr = next(stream)
+                if alpha is None:         # GT cache: gt holds the indices
+                    idx = torch.as_tensor(gt, device=self.device)
+                    gt, alpha = self._gt_cache[0][idx], self._gt_cache[1][idx]
+            tracing.count("batch_wait_ns", time.perf_counter_ns() - t_iter)
+            with tracing.span("train.step"):
+                self.gauss, self.env, metrics = train_step(
+                    self.gauss, it, cams, gt, alpha, self.bg, self.step_cfg,
+                    self.opts, env=self.env, intrinsics=intr,
+                    strips=self.cfg.strips if self.mesh else 1,
+                    mesh=self.mesh)
             self.step = it
+            with tracing.span("train.bookkeeping"):
+                # Densification (train.py:231-244). The active count is a
+                # host int here at every step, so the point limit is read
+                # each time.
+                in_window = it < opt.densify_until_iter and (
+                    opt.densify_until_num_points < 0
+                    or self.n_active < opt.densify_until_num_points)
+                if in_window and (it > opt.densify_from_iter
+                                  and it % opt.densification_interval == 0):
+                    self._densify_event(it)
+                if in_window and (it % opt.opacity_reset_interval == 0
+                                  or (self.cfg.model.white_background
+                                      and it == opt.densify_from_iter)):
+                    self.gauss = dz.reset_opacity(self.gauss)
 
-            # Densification (train.py:231-244). The active count is a host
-            # int here at every step, so the point limit is read each time.
-            in_window = it < opt.densify_until_iter and (
-                opt.densify_until_num_points < 0
-                or self.n_active < opt.densify_until_num_points)
-            if in_window and (it > opt.densify_from_iter
-                              and it % opt.densification_interval == 0):
-                self._densify_event(it)
-            if in_window and (it % opt.opacity_reset_interval == 0
-                              or (self.cfg.model.white_background
-                                  and it == opt.densify_from_iter)):
-                self.gauss = dz.reset_opacity(self.gauss)
-
-            loss = float(metrics.loss)
-            if not np.isfinite(loss) and self.is_writer and (debug or (
-                    self.cfg.debug_from >= 0 and it >= self.cfg.debug_from)):
-                self._dump_debug_snapshot(it, cams, gt, alpha, intr)
-            ema_loss = 0.4 * loss + 0.6 * ema_loss if it > 1 else loss
-            if it % 50 == 0 or it == 1:
-                dt = time.perf_counter() - t_start
-                self.log(f"it {it}/{total} loss {ema_loss:.4f} "
-                         f"psnr {float(metrics.psnr):.2f} "
-                         f"pts {self.n_active} "
-                         f"({(it - first) / max(dt, 1e-9):.2f} it/s)")
-            if it % 10 == 0 or it == 1:
-                self.metrics_log.log(
-                    it, loss=loss, ema_loss=ema_loss, l1=metrics.l1,
-                    ssim_loss=metrics.ssim_loss, psnr=metrics.psnr,
-                    total_points=metrics.n_active,
-                    num_rendered=metrics.num_rendered, rigid=metrics.rigid,
-                    motion=metrics.motion)
-                if self.tb is not None:
-                    self._tb_step_scalars(it, loss, metrics, t_start)
+                loss = float(tracing.read("trainer.loss", metrics.loss))
+                # This iteration's own time: the read waited for its work.
+                iter_ms = (time.perf_counter_ns() - t_iter) * 1e-6
+                if not np.isfinite(loss) and self.is_writer and (debug or (
+                        self.cfg.debug_from >= 0
+                        and it >= self.cfg.debug_from)):
+                    self._dump_debug_snapshot(it, cams, gt, alpha, intr)
+                ema_loss = 0.4 * loss + 0.6 * ema_loss if it > 1 else loss
+                if it % 50 == 0 or it == 1:
+                    dt = time.perf_counter() - t_start
+                    psnr = tracing.read("trainer.console", metrics.psnr)
+                    self.log(f"it {it}/{total} loss {ema_loss:.4f} "
+                             f"psnr {psnr:.2f} pts {self.n_active} "
+                             f"({(it - first) / max(dt, 1e-9):.2f} it/s)")
+                if it % 10 == 0 or it == 1:
+                    self.metrics_log.log(
+                        it, loss=loss, ema_loss=ema_loss, l1=metrics.l1,
+                        ssim_loss=metrics.ssim_loss, psnr=metrics.psnr,
+                        total_points=metrics.n_active,
+                        num_rendered=metrics.num_rendered,
+                        rigid=metrics.rigid, motion=metrics.motion)
+                    if self.tb is not None:
+                        self._tb_step_scalars(it, loss, metrics, iter_ms)
             if on_step is not None:
                 on_step(it, metrics)
 
@@ -450,18 +462,21 @@ class Trainer(Evaluator):
         self.wait_for_saves()
         return self.gauss
 
-    def _tb_step_scalars(self, it: int, loss: float, metrics, t_start):
+    def _tb_step_scalars(self, it: int, loss: float, metrics,
+                         iter_ms: float):
         """The reference's step scalars (tag names of `train.py:277-298`);
-        iter_time is the mean ms per iteration since `train` started."""
+        iter_time is this iteration's own ms, from the loop's top to the
+        loss read, as the reference logs it (`train.py:281`)."""
         add = self.tb.add_scalar
-        add("train_loss_patches/l1_loss", float(metrics.l1), it)
-        add("train_loss_patches/ssim_loss", float(metrics.ssim_loss), it)
+        read = lambda x: tracing.read("trainer.tensorboard", x)  # noqa: E731
+        add("train_loss_patches/l1_loss", read(metrics.l1), it)
+        add("train_loss_patches/ssim_loss", read(metrics.ssim_loss), it)
         add("train_loss_patches/total_loss", loss, it)
-        add("total_points", int(metrics.n_active), it)
-        add("iter_time", (time.perf_counter() - t_start) / max(it, 1)
-            * 1000.0, it)
-        if float(metrics.rigid) > 0:
-            add("train_loss_patches/rigid_loss", float(metrics.rigid), it)
+        add("total_points", int(read(metrics.n_active)), it)
+        add("iter_time", iter_ms, it)
+        rigid = read(metrics.rigid)
+        if rigid > 0:
+            add("train_loss_patches/rigid_loss", rigid, it)
 
     def evaluate(self, max_cameras: Optional[int] = None,
                  with_msssim: bool = False, train_views: int = 0,

@@ -35,6 +35,7 @@ from typing import List, NamedTuple
 import torch
 
 from ..ops import gaussmath as gm
+from ..utils import tracing
 from .gaussians import AdamState, GaussianParams, GaussianState, normalize
 
 
@@ -127,7 +128,8 @@ def densify_and_prune(state: GaussianState, noise, extent: float, *,
     params = state.params
     device = params.xyz.device
     rows = params.xyz.shape[0]
-    active = torch.arange(rows, device=device) < int(state.n_active)
+    active = torch.arange(rows, device=device) < tracing.read(
+        "densify", state.n_active)
 
     denom = torch.clamp(state.denom, min=1.0)
     grads = torch.where(state.denom > 0, state.xyz_grad_accum / denom, 0.0)
@@ -178,7 +180,7 @@ def densify_and_prune(state: GaussianState, noise, extent: float, *,
     info = DensifyInfo(
         n_active=n, n_cloned=int(cloned.numel()),
         n_split=int(parents.numel()),
-        n_pruned=int((active & drop & ~split).sum()))
+        n_pruned=tracing.read("densify", (active & drop & ~split).sum()))
     return new_state, info
 
 
@@ -191,7 +193,8 @@ def prune_only(state: GaussianState, extent: float, *, cfg: DensifyConfig,
     params = state.params
     device = params.xyz.device
     rows = params.xyz.shape[0]
-    active = torch.arange(rows, device=device) < int(state.n_active)
+    active = torch.arange(rows, device=device) < tracing.read(
+        "densify", state.n_active)
     drop = torch.sigmoid(params.opacity[:, 0]) < cfg.min_opacity
     if use_size_threshold:
         big = _f32(0.1, device) * _f32(extent, device)

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from .preprocess import ProcessedGaussians, RenderOptions
 
 
@@ -41,7 +42,8 @@ def bin_gaussians(proc: ProcessedGaussians, opts: RenderOptions) -> TileBins:
     device = proc.depth.device
     counts_g = proc.tiles_touched.to(torch.int64)
     offsets = torch.cumsum(counts_g, dim=0)               # inclusive
-    num_rendered = int(offsets[-1]) if offsets.numel() else 0  # host read
+    num_rendered = (tracing.read("binning", offsets[-1])
+                    if offsets.numel() else 0)
 
     gid = torch.repeat_interleave(
         torch.arange(counts_g.numel(), device=device), counts_g,

@@ -33,6 +33,7 @@ import functools
 import torch
 
 from .. import cuda_build
+from ..utils import tracing
 from . import gaussmath as gm
 from .binning import TileBins
 from .preprocess import TILE, ProcessedGaussians, RenderOptions
@@ -260,20 +261,20 @@ def blend_forward(rec: torch.Tensor, gauss_id: torch.Tensor,
     """Forward tile blend (kernel K1). CPU tensors take the plain version;
     CUDA tensors launch the kernel, which raises if it cannot build or
     launch. Returns (accum (T, 6, 256), t_final (T, 256), n_contrib
-    (T, 256) i32). `blend_forward.observer`, if set, is called with (the
-    arguments, the result) of every call."""
+    (T, 256) i32); a launch counts as `launches.k1` (`utils/tracing.py`).
+    `blend_forward.observer`, if set, is called with (the arguments, the
+    result) of every call."""
     args = (rec, gauss_id, tile_start, tile_count, tiles_x)
     if rec.device.type == "cpu":
         out = blend_forward_plain(*args)
     else:
         out = launch_forward(*args)
-        blend_forward.launches += 1
+        tracing.count("launches.k1")
     if blend_forward.observer is not None:
         blend_forward.observer(args, out)
     return out
 
 
-blend_forward.launches = 0
 # As `blend_backward.observer`: set by a caller that checks K1 on the
 # inputs of a real training step (chip_smoke.py); nothing in the package.
 blend_forward.observer = None
@@ -514,20 +515,20 @@ def blend_backward(rec: torch.Tensor, gauss_id: torch.Tensor,
     (P, 12) of the records, from K1's t_final and n_contrib and the
     per-pixel cotangents `dcot` (T, 7, 256) of `blend_cotangents`. CPU
     tensors take the plain version; CUDA tensors launch the kernel, which
-    raises if it cannot build or launch. `blend_backward.observer`, if
-    set, is called with (the arguments, the result) of every call."""
+    raises if it cannot build or launch; a launch counts as `launches.k2`
+    (`utils/tracing.py`). `blend_backward.observer`, if set, is called
+    with (the arguments, the result) of every call."""
     args = (rec, gauss_id, tile_start, t_final, n_contrib, dcot, tiles_x)
     if rec.device.type == "cpu":
         out = blend_backward_plain(*args)
     else:
         out = launch_backward(*args)
-        blend_backward.launches += 1
+        tracing.count("launches.k2")
     if blend_backward.observer is not None:
         blend_backward.observer(args, out)
     return out
 
 
-blend_backward.launches = 0
 # A caller that checks K2 on the inputs of a real training step sets this
 # (chip_smoke.py does); nothing in the package does.
 blend_backward.observer = None
@@ -649,17 +650,15 @@ def blend_infer(packed: torch.Tensor, gauss_id: torch.Tensor,
                 tiles_x: int):
     """Packed inference tile blend (kernel K3), forward only and not
     differentiable. CPU tensors take the plain version; CUDA tensors launch
-    the kernel, which raises if it cannot build or launch. Returns (accum
-    (T, 4, 256), t_final (T, 256))."""
+    the kernel, which raises if it cannot build or launch; a launch counts
+    as `launches.k3` (`utils/tracing.py`). Returns (accum (T, 4, 256),
+    t_final (T, 256))."""
     if packed.device.type == "cpu":
         return blend_infer_plain(packed, gauss_id, tile_start, tile_count,
                                  tiles_x)
     out = launch_infer(packed, gauss_id, tile_start, tile_count, tiles_x)
-    blend_infer.launches += 1
+    tracing.count("launches.k3")
     return out
-
-
-blend_infer.launches = 0
 
 
 def launch_infer(packed, gauss_id, tile_start, tile_count, tiles_x: int):

@@ -21,6 +21,7 @@ from .ops import blend as blend_lib
 from .ops import gaussmath as gm
 from .ops import preprocess as pre
 from .ops.preprocess import CameraArrays, RenderOptions
+from .utils import tracing
 
 
 class RenderOutputs(NamedTuple):
@@ -36,6 +37,18 @@ class RenderOutputs(NamedTuple):
     cov3d_com: torch.Tensor     # (P, 6) conditional 3D covariance (packed)
 
 
+def _preprocess_and_bin(*, camera: CameraArrays, opts: RenderOptions,
+                        mark: Callable[[str], None] | None = None,
+                        **gaussians):
+    """(proc, bins) of `blend_inputs`, each stage in its span and mark."""
+    with tracing.stage("render.preprocess", mark, "preprocess"):
+        proc = pre.preprocess(**gaussians, camera=camera, opts=opts)
+    with tracing.stage("render.binning", mark, "binning"):
+        bins = binning.bin_gaussians(
+            pre.ProcessedGaussians(*(x.detach() for x in proc)), opts)
+    return proc, bins
+
+
 def blend_inputs(*, camera: CameraArrays, opts: RenderOptions,
                  mark: Callable[[str], None] | None = None,
                  infer: bool = False, **gaussians):
@@ -45,13 +58,8 @@ def blend_inputs(*, camera: CameraArrays, opts: RenderOptions,
     packed (P, 8) int32 table of kernel K3). Binning sees a detached
     `proc` (the JAX package's stop_gradient): gradients reach the gaussians
     through the records only."""
-    proc = pre.preprocess(**gaussians, camera=camera, opts=opts)
-    if mark:
-        mark("preprocess")
-    bins = binning.bin_gaussians(
-        pre.ProcessedGaussians(*(x.detach() for x in proc)), opts)
-    if mark:
-        mark("binning")
+    proc, bins = _preprocess_and_bin(camera=camera, opts=opts, mark=mark,
+                                     **gaussians)
     build = blend_lib.pack_records_infer if infer else blend_lib.build_records
     return proc, bins, build(proc)
 
@@ -66,32 +74,33 @@ def render(*, means3d, t, scales, scales_t, rotations, rotations_r,
     `colors_precomp` and `cov3d_precomp`), on one device: CUDA tensors run
     the CUDA blend kernels (K1 forward, K2 in the backward), CPU tensors
     their plain versions. `mark`, if given, is called with the name of
-    each stage (preprocess, binning, blend) as soon as its work is issued.
+    each stage (preprocess, binning, blend) as soon as its work is issued;
+    the stages are the spans render.preprocess, render.binning and
+    render.blend (`utils/tracing.py`).
 
     infer=True takes the forward-only packed path (kernel K3): xy and conic
     exact, opacity, rgb and depth rounded to bf16 (~0.4%). It is not
     differentiable: the outputs carry no graph, and the flow output is
     zeros."""
     with torch.set_grad_enabled(torch.is_grad_enabled() and not infer):
-        proc, bins, rec = blend_inputs(
+        proc, bins = _preprocess_and_bin(
             means3d=means3d, t=t, scales=scales, scales_t=scales_t,
             rotations=rotations, rotations_r=rotations_r, opacity=opacity,
             sh=sh, active=active, camera=camera, opts=opts, sh_mask=sh_mask,
             mean2d_tap=mean2d_tap, colors_precomp=colors_precomp,
-            cov3d_precomp=cov3d_precomp, mark=mark, infer=infer)
-        if infer:
-            accum, t_final = blend_lib.blend_infer(
-                rec, bins.gauss_id, bins.tile_start, bins.tile_count,
-                opts.tiles_x)
-            color, depth, alpha = blend_lib.assemble_outputs_infer(
-                accum, t_final, bg, opts)
-            flow = torch.zeros((opts.height, opts.width, 2),
-                               dtype=torch.float32, device=color.device)
-        else:
-            color, depth, flow, alpha = blend_lib.Blend.apply(
-                rec, bg, bins, opts)
-    if mark:
-        mark("blend")
+            cov3d_precomp=cov3d_precomp, mark=mark)
+        with tracing.stage("render.blend", mark, "blend"):
+            if infer:
+                accum, t_final = blend_lib.blend_infer(
+                    blend_lib.pack_records_infer(proc), bins.gauss_id,
+                    bins.tile_start, bins.tile_count, opts.tiles_x)
+                color, depth, alpha = blend_lib.assemble_outputs_infer(
+                    accum, t_final, bg, opts)
+                flow = torch.zeros((opts.height, opts.width, 2),
+                                   dtype=torch.float32, device=color.device)
+            else:
+                color, depth, flow, alpha = blend_lib.Blend.apply(
+                    blend_lib.build_records(proc), bg, bins, opts)
     return RenderOutputs(
         color=color, depth=depth, alpha=alpha, flow=flow,
         radii=proc.radius, visible=proc.visible,

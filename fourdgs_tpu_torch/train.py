@@ -59,7 +59,8 @@ def parse_args(argv=None):
                         "--detect_anomaly)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler chrome trace of "
-                        "iterations 11-20 into this directory")
+                        "iterations 11-20, the step's spans named in it, "
+                        "into this directory")
     p.add_argument("--override", nargs="*", default=[],
                    help="dotted KEY=VALUE post-YAML overrides, e.g. "
                         "optimization.lambda_rigid=0.5")

@@ -1,7 +1,9 @@
 """Training metrics logging: the TensorBoard-writer role of the reference
 (`train.py:254-298`: EMA loss terms, total_points, iter_time, eval
-scalars) as dependency-free JSONL, one JSON object per line with `step`
-and `wall_s`. A copy of `fourdgs_tpu/utils/metrics_log.py`."""
+scalars) as JSONL, one JSON object per line with `step` and `wall_s`. The
+JAX package's `fourdgs_tpu/utils/metrics_log.py`, but for one thing: a
+tensor's value is read through `tracing.read`, which counts the host
+read."""
 
 from __future__ import annotations
 
@@ -9,6 +11,10 @@ import json
 import os
 import time
 from typing import Optional
+
+import torch
+
+from . import tracing
 
 
 class MetricsLogger:
@@ -28,6 +34,8 @@ class MetricsLogger:
         rec = {"step": step,
                "wall_s": round(time.perf_counter() - self._t0, 3)}
         for k, v in scalars.items():
+            if isinstance(v, torch.Tensor):
+                v = tracing.read("metrics_jsonl", v)
             try:
                 rec[k] = float(v)
             except (TypeError, ValueError):

@@ -16,6 +16,7 @@ from fourdgs_tpu.ops.reference_renderer import render_reference
 from fourdgs_tpu.render import render as jax_render
 from fourdgs_tpu_torch.ops import binning as port_binning
 from fourdgs_tpu_torch.ops import blend as port_blend
+from fourdgs_tpu_torch.utils import tracing
 from fourdgs_tpu_torch.ops import preprocess as port_pre
 
 from torch_helpers import (WARP_OF, check_cull_against_exact_test,
@@ -147,22 +148,22 @@ def test_plain_blend_pair_counts(rng, scene_name):
 def test_wrapper_never_runs_plain_off_cpu(rng):
     """Only CPU tensors reach the plain version: any other device goes to
     the kernel path, which raises here (no CUDA), and counts nothing."""
-    before = port_blend.blend_forward.launches
+    before = tracing.totals().get("launches.k1", 0)
     meta = lambda *s, dtype=torch.float32: torch.empty(  # noqa: E731
         s, dtype=dtype, device="meta")
     with pytest.raises((ValueError, RuntimeError)):
         port_blend.blend_forward(meta(4, 12), meta(3, dtype=torch.int32),
                                  meta(6, dtype=torch.int32),
                                  meta(6, dtype=torch.int32), 3)
-    assert port_blend.blend_forward.launches == before
+    assert tracing.totals().get("launches.k1", 0) == before
 
 
 def test_plain_blend_counts_no_launch(rng):
     scene = random_scene(rng, p=56)
     _, jproc = _jax_proc(scene)
-    before = port_blend.blend_forward.launches
+    before = tracing.totals().get("launches.k1", 0)
     _port_blend(jproc)
-    assert port_blend.blend_forward.launches == before
+    assert tracing.totals().get("launches.k1", 0) == before
 
 
 def test_forward_observer_sees_each_call(rng):

@@ -18,6 +18,7 @@ from fourdgs_tpu.ops import pallas_blend
 from fourdgs_tpu.ops import preprocess as jax_pre
 from fourdgs_tpu_torch.ops import binning as port_binning
 from fourdgs_tpu_torch.ops import blend as port_blend
+from fourdgs_tpu_torch.utils import tracing
 from fourdgs_tpu_torch.ops import gaussmath as port_gm
 from fourdgs_tpu_torch.ops import preprocess as port_pre
 
@@ -186,14 +187,14 @@ def test_backward_pair_counts(rng):
 def test_backward_wrapper_never_runs_plain_off_cpu():
     """Only CPU tensors reach the plain version: any other device goes to
     the kernel path, which raises here (no CUDA), and counts nothing."""
-    before = port_blend.blend_backward.launches
+    before = tracing.totals().get("launches.k2", 0)
     meta = lambda *s, dtype=torch.float32: torch.empty(  # noqa: E731
         s, dtype=dtype, device="meta")
     with pytest.raises((ValueError, RuntimeError)):
         port_blend.blend_backward(
             meta(4, 12), meta(3, dtype=torch.int32), meta(6, dtype=torch.int32),
             meta(6, 256), meta(6, 256, dtype=torch.int32), meta(6, 7, 256), 3)
-    assert port_blend.blend_backward.launches == before
+    assert tracing.totals().get("launches.k2", 0) == before
 
 
 def test_backward_observer_sees_each_call(rng):

@@ -17,6 +17,7 @@ from fourdgs_tpu.ops import preprocess as jax_pre
 from fourdgs_tpu.render import render as jax_render
 from fourdgs_tpu_torch.ops import binning as port_binning
 from fourdgs_tpu_torch.ops import blend as port_blend
+from fourdgs_tpu_torch.utils import tracing
 from fourdgs_tpu_torch.ops import preprocess as port_pre
 from fourdgs_tpu_torch.render import render
 
@@ -256,7 +257,7 @@ def test_infer_wrapper_never_runs_plain_off_cpu():
     """Only CPU tensors reach the plain version: any other device goes to
     the kernel path, which raises here (no CUDA), and counts nothing; the
     plain path counts no launch either."""
-    before = port_blend.blend_infer.launches
+    before = tracing.totals().get("launches.k3", 0)
     meta = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")  # noqa: E731
     with pytest.raises((ValueError, RuntimeError)):
         port_blend.blend_infer(meta(4, 8), meta(3), meta(6), meta(6), 3)
@@ -264,4 +265,4 @@ def test_infer_wrapper_never_runs_plain_off_cpu():
         torch.zeros((4, 8), dtype=torch.int32),
         torch.zeros(0, dtype=torch.int32), torch.zeros(6, dtype=torch.int32),
         torch.zeros(6, dtype=torch.int32), 3)
-    assert port_blend.blend_infer.launches == before
+    assert tracing.totals().get("launches.k3", 0) == before

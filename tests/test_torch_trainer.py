@@ -255,7 +255,8 @@ def test_train_cli_refuses(tmp_path, capsys, case):
 @pytest.mark.parametrize("flag", ["--profile_dir", "--detect_anomaly"])
 def test_train_cli_profile_and_anomaly(tmp_path, flag):
     """--profile_dir writes a torch.profiler chrome trace of iterations
-    11-20; --detect_anomaly trains under autograd's anomaly mode."""
+    11-20, the step's spans named in it; --detect_anomaly trains under
+    autograd's anomaly mode."""
     trace_dir = tmp_path / "trace"
     profile = flag == "--profile_dir"
     argv = ["--config", _write_cli_config(tmp_path), "--device", "cpu",
@@ -271,3 +272,8 @@ def test_train_cli_profile_and_anomaly(tmp_path, flag):
     if profile:
         trace = json.loads((trace_dir / "trace.json").read_text())
         assert trace["traceEvents"]
+        names = {e.get("name") for e in trace["traceEvents"]}
+        assert {"train.batch_wait", "train.step", "train.bookkeeping",
+                "step.render", "step.backward", "step.update",
+                "render.preprocess", "render.binning",
+                "render.blend"} <= names
